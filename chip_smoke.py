@@ -5,20 +5,32 @@
 Phases, each of which raises (and so exits non-zero) on failure:
   0. require a CUDA device; print the card's name and power limit and the
      TF32 switches (both off: reduced-precision products stall Newton);
-  1. build the hand-written CUDA kernels from csrc/ with nvcc;
-  2. hold every kernel of the main path (condense K1, Kc, K2, K3; Riccati
-     backward sweep K5 without and with switching rows) against its plain
-     PyTorch version on the card, in float64 and float32, at the shapes of
-     the main path, and time kernel, plain version and library call;
-  3. the main path: the ANYmal contact-OCP Newton update (T 0.5, N 20) for
-     a fleet of B = 128 scenarios with perturbed initial configurations,
-     float32, two updates per MPC step, through OCPSolver.update with the
-     kernels; launch counts, finite KKT, agreement with the same run on
-     the plain versions, and the time per MPC step;
-  4. float64, one scenario, 16 updates through the kernels: reproduce
-     tests/golden/anymal_standing_ocp.npz to 1e-6 with KKT below 1e-6;
-  5. print the kernels' JSON line, the card line and the final status line.
+  1. build the hand-written CUDA kernels from csrc/ with nvcc, one process
+     per source, all at once;
+  2. hold every kernel against its plain PyTorch version on the card, in
+     float64 and float32: condense K1, Kc, K2, K3 on the stage slots of the
+     trot fleet; the Riccati backward sweep K5 without switching rows
+     (standing shapes) and with them (trot shapes); the chain kernel K6
+     without the cost fold at the standing shapes and with it at the trot
+     shapes. Time kernel, plain version and library call (float32);
+  3. "slice": the ANYmal standing contact OCP (T 0.5, N 20), B = 128
+     scenarios with perturbed initial configurations, float32, two updates
+     per MPC step through OCPSolver.update with the kernels (K6 without the
+     cost fold); launch counts, finite KKT, agreement with the plain
+     versions, time per MPC step;
+  4. "trot": the main path, the mid-gait ANYmal trot MPC update (T 0.5,
+     N 20, 4 impact slots, switching constraints, the gait cost stack
+     folded into K6), B = 128, float32, two updates per MPC step; launch
+     counts of all six kernels, finite KKT, agreement with the plain
+     versions, time per MPC step, host time by part and the device idle
+     share; then float64, one unperturbed scenario, 15 updates through the
+     kernels, ending at KKT < 1e-3;
+  5. "golden": float64, one standing scenario, 16 updates through the
+     kernels: reproduce tests/golden/anymal_standing_ocp.npz to 1e-6 with
+     KKT below 1e-6;
+  6. print the kernels' JSON line, the card line and the final status line.
 """
+import dataclasses
 import json
 import os
 import subprocess
@@ -30,6 +42,7 @@ import torch
 
 from robotoc_tpu_torch import kernels, problems
 from robotoc_tpu_torch.models import robot as rm
+from robotoc_tpu_torch.ops import chain as chn
 from robotoc_tpu_torch.ops import condense as cd
 from robotoc_tpu_torch.riccati import backward_sweep as bs
 from robotoc_tpu_torch.solver import ocp_solver as OS
@@ -42,7 +55,9 @@ HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {torch.float32: 67e12, torch.float64: 34e12}
 # kernel vs plain version, relative to each output's largest magnitude
 TOL = {torch.float64: 1e-10, torch.float32: 1e-4}
-ALL_PHASES = ("build", "kernels", "slice", "golden")
+ALL_PHASES = ("build", "kernels", "slice", "trot", "golden")
+FIELDS = ("q", "v", "a", "u", "f", "lmd", "gmm", "beta", "mu", "s_lim",
+          "z_lim", "s_cone", "z_cone")
 
 
 def check(cond, msg):
@@ -115,7 +130,7 @@ def nbytes(*ts):
 
 
 # ---------------------------------------------------------------------------
-# operation counts per stage (K1-K3) or per step (K5), from the dims
+# operation counts per stage (K1-K3, K6) or per step (K5), from the dims
 # ---------------------------------------------------------------------------
 
 def flops_k1(nv, nf, w):
@@ -149,6 +164,22 @@ def flops_k5_step(nx, nu, nf):
     return f
 
 
+def flops_k6(nv, nj, nc, with_cost):
+    """Forward-mode arithmetic per stage, counted from csrc/chain_stage.cuh
+    (a dual multiply is 4 flops, a dual add 2): per tangent column (3 nv of
+    them) and joint about 650 flops forward, 420 for the net force and 220
+    for the backward sum; per column 3,400 for the contact, cone, task and
+    CoM rows; with the cost fold, per q-column 700 for the residual
+    Jacobians, per state-equation column 500, and the Gauss-Newton sums
+    (nv^2 entries over nv + 3 + 3 nc + 3 rows)."""
+    ncol = 3 * nv
+    f = ncol * (nj * (650 + 420 + 220) + 3400 * nc // 4)
+    if with_cost:
+        nr = nv + 3 + 3 * nc + 3
+        f += nv * 700 + 12 * 500 + 3 * nv * nv * nr + 2 * 6 ** 3
+    return f
+
+
 def bound(bytes_moved, flops, dtype):
     t_bytes = bytes_moved / HBM_BYTES_PER_S
     t_ops = flops / PEAK_FLOPS[dtype]
@@ -160,34 +191,54 @@ def bound(bytes_moved, flops, dtype):
 # inputs
 # ---------------------------------------------------------------------------
 
-def fleet_start(p, Bn, seed=0):
-    """Warm start broadcast to Bn scenarios whose initial configurations
-    are moved by 0.03 N(0, 1) in the tangent space (numpy seed)."""
+def standing_fleet(p, Bn):
     solver = OS.OCPSolver(p.model, p.contacts, (p.cost,), p.limits, T=p.T,
                           N=p.N)
-    sol = solver.init_solution(p.grid, p.q0, p.v0).map(
-        lambda x: x.expand((Bn,) + x.shape).contiguous())
+    return solver, problems.fleet(solver, p.grid, p.q0, p.v0, Bn)
+
+
+def perturbed(model, sol, seed=3, scale=0.05):
+    """The fleet iterate moved off its warm start by seeded noise, so that
+    every stage slot of every scenario differs."""
     rng = np.random.default_rng(seed)
-    kw = dict(dtype=p.model.dtype, device=p.model.device)
-    dq = torch.as_tensor(0.03 * rng.standard_normal((Bn, p.model.nv)), **kw)
-    q0s = rm.integrate(p.model, p.q0.expand(Bn, p.model.nq), dq)
-    v0s = torch.zeros((Bn, p.model.nv), **kw)
-    return sol, q0s, v0s
+    kw = dict(dtype=sol.q.dtype, device=sol.q.device)
+
+    def r(x, s=scale):
+        return torch.as_tensor(s * rng.standard_normal(tuple(x.shape)), **kw)
+
+    return sol.replace(
+        q=rm.integrate(model, sol.q, r(sol.v)), v=sol.v + r(sol.v),
+        a=sol.a + r(sol.a, 0.5), u=sol.u + r(sol.u, 0.5),
+        f=sol.f + r(sol.f, 5.0))
 
 
-def condense_inputs(dev):
-    """The condense kernels' inputs at the main path's shapes: stage_pre
-    of every stage of the B x N fleet at its perturbed start (float64)."""
-    p = problems.anymal_standing(N=N, dtype=torch.float64, device=dev)
-    sol, q0s, v0s = fleet_start(p, B)
-    sol_b, grid_b, _, _, _ = OS._fleet(sol, p.grid, q0s, v0s)
-    pre = OS.stage_inputs(p.model, p.contacts, p.limits, 1e-3, (p.cost,),
-                          sol_b, grid_b)
-    return {k: pre[k].contiguous() for k in cd.IN_NAMES}
+def trot_inputs(dev, dtype=torch.float64):
+    """The trot fleet (B scenarios) at a perturbed iterate: problem,
+    fleet-shaped (sol, grid) and the flat pre-condensing fields of every
+    stage slot (the condense kernels' inputs on the main path)."""
+    p = problems.anymal_trot(N=N, dtype=dtype, device=dev)
+    sol, q0s, v0s = problems.fleet(p.solver, p.grid, p.q0, p.v0, B)
+    sol_b, grid_b, _, _, _ = OS._fleet(perturbed(p.model, sol), p.grid, q0s,
+                                       v0s)
+    return p, sol_b, grid_b
 
 
-def lqr_inputs(nf, dtype, dev, seed=1, nx=36, nu=12):
-    """Seeded well-conditioned LQR data (B, N, ...) at the slice widths;
+def chain_args(model, contacts, costs, sol_b, grid_b, with_cost):
+    """K6's inputs for every stage slot of a fleet, as the solver makes
+    them."""
+    fl = OS._flat
+    rowmask = contacts.force_mask(grid_b.contact_mask[:, :-1])
+    args = [fl(x).contiguous() for x in (
+        sol_b.q[:, :-1], sol_b.v[:, :-1], sol_b.a[:, :-1],
+        sol_b.f[:, :-1] * rowmask, grid_b.friction[:, :-1],
+        grid_b.p_ref[:, :-1])]
+    cost = (list(chn.cost_fold_inputs(model, contacts, costs, grid_b,
+                                      sol_b)) if with_cost else [])
+    return args, cost
+
+
+def lqr_inputs(nf, dtype, dev, Nh, seed=1, nx=36, nu=12):
+    """Seeded well-conditioned LQR data (B, Nh, ...) at the slice widths;
     with nf > 0, some steps carry masked switching rows."""
     rng = np.random.default_rng(seed)
 
@@ -197,19 +248,18 @@ def lqr_inputs(nf, dtype, dev, seed=1, nx=36, nu=12):
     def spd(X, n):
         return X @ np.swapaxes(X, -1, -2) + 2.0 * np.eye(n)
 
-    f = dict(A=r(N, nx, nx) / 3 + np.eye(nx), B=r(N, nx, nu),
-             xres=r(N, nx), Qxx=spd(r(N, nx, nx), nx),
-             Qxu=0.1 * r(N, nx, nu), Quu=spd(r(N, nu, nu), nu),
-             lx=r(N, nx), lu=r(N, nu), QxxN=spd(r(nx, nx), nx), lxN=r(nx))
-    sw = None
+    f = dict(A=r(Nh, nx, nx) / 3 + np.eye(nx), B=r(Nh, nx, nu),
+             xres=r(Nh, nx), Qxx=spd(r(Nh, nx, nx), nx),
+             Qxu=0.1 * r(Nh, nx, nu), Quu=spd(r(Nh, nu, nu), nu),
+             lx=r(Nh, nx), lu=r(Nh, nu), QxxN=spd(r(nx, nx), nx), lxN=r(nx))
     if nf:
-        sw = ((rng.uniform(size=(B, N, nf)) < 0.5)
-              * (rng.uniform(size=(B, N, 1)) < 0.3)).astype(float)
+        sw = ((rng.uniform(size=(B, Nh, nf)) < 0.5)
+              * (rng.uniform(size=(B, Nh, 1)) < 0.3)).astype(float)
         # at most half the rows active, as when two feet touch down: all
         # nf = nu rows of random Phiu make the Schur block S ill-conditioned
         sw[..., nf // 2:] = 0.0
-        f.update(Phix=r(N, nf, nx) * sw[..., None],
-                 Phiu=r(N, nf, nu) * sw[..., None], Pc=r(N, nf) * sw, sw=sw)
+        f.update(Phix=r(Nh, nf, nx) * sw[..., None],
+                 Phiu=r(Nh, nf, nu) * sw[..., None], Pc=r(Nh, nf) * sw, sw=sw)
     order = ("A", "B", "xres", "Qxx", "Qxu", "Quu", "lx", "lu", "QxxN",
              "lxN", "Phix", "Phiu", "Pc", "sw")
     return [torch.as_tensor(f[k], dtype=dtype, device=dev).contiguous()
@@ -250,16 +300,32 @@ def _compare(name, kern_out, plain_out, dtype):
               f"{name} {dtype}: output {i} max error {err:.3e} > "
               f"{TOL[dtype]:.0e} x {scale:.3e}")
         worst = max(worst, err)
-    print(f"  {name:7s} {str(dtype):14s} max_abs_err {worst:.3e} "
+    print(f"  {name:10s} {str(dtype):14s} max_abs_err {worst:.3e} "
           f"(tolerance {TOL[dtype]:.0e} x each output's max-abs)")
     return worst
 
 
+def _record(name, source, replaces, err, ms, plain_ms, b, library_ms):
+    return dict(name=name, route="cuda", source=source, replaces=replaces,
+                launches=None, max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                bound_ms=b[0], bound_by=b[1], library_ms=library_ms)
+
+
 def phase_kernels(dev):
     """Every kernel against its plain version; times at float32, the main
-    path's type. Returns the per-kernel records (launches filled later)."""
-    x64 = condense_inputs(dev)
-    recs = {}
+    path's type, at the trot shapes. Returns the per-kernel records
+    (launches filled later)."""
+    p64, sol64, grid64 = trot_inputs(dev)
+    pre64 = OS.stage_pre_all(p64.model, p64.mpc.contacts, p64.mpc.limits,
+                             1e-3, p64.costs, sol64, grid64,
+                             n_imp=p64.mpc.n_reserved, use_chain=False)
+    x64 = {k: pre64[k].contiguous() for k in cd.IN_NAMES}
+    ps = problems.anymal_standing(N=N, dtype=torch.float64, device=dev)
+    _, (sol_s, q_s, v_s) = standing_fleet(ps, B)
+    sol_s, grid_s, _, _, _ = OS._fleet(perturbed(ps.model, sol_s), ps.grid,
+                                       q_s, v_s)
+    Nt = grid64.dt.shape[1]
+    recs, extra = {}, {}
     for dtype in (torch.float64, torch.float32):
         x = {k: v.to(dtype) for k, v in x64.items()}
         k1_in = [x[n] for n in ("M", "J", "inactive", "Tw1", "Tw2", "r1",
@@ -281,11 +347,27 @@ def phase_kernels(dev):
             x[n] for n in ("Aqq", "Aqv", "xres_q", "Fv_res", "sA", "lam2",
                            "lmdgmm")]
         e3 = _compare("K3", cd.k3(*k3_in), cd.k3_plain(*k3_in), dtype)
-        e5 = {}
-        for nf in (0, 12):
-            l_in = lqr_inputs(nf, dtype, dev)
-            e5[nf] = _compare(f"K5 nf={nf}", bs.bwd(*l_in),
-                              bs.bwd_plain(*l_in), dtype)
+        l0 = lqr_inputs(0, dtype, dev, N)
+        e50 = _compare("K5 nf=0", bs.bwd(*l0), bs.bwd_plain(*l0), dtype)
+        l12 = lqr_inputs(12, dtype, dev, Nt)
+        e512 = _compare("K5 nf=12", bs.bwd(*l12), bs.bwd_plain(*l12), dtype)
+        # K6: without the cost fold at the standing shapes, with it at the
+        # trot shapes
+        k6 = {}
+        for wc, pp, cts, costs, sb, gb in (
+                (False, ps, ps.contacts, (ps.cost,), sol_s, grid_s),
+                (True, p64, p64.mpc.contacts, p64.costs, sol64, grid64)):
+            args, cost = chain_args(pp.model, cts, costs, sb, gb, wc)
+            args = [a.to(dtype) for a in args]
+            cost = [c.to(dtype).contiguous() for c in cost]
+            model = _cast_model(pp.model, dtype)
+            contacts = _cast_contacts(cts, dtype)
+            names = chn._OUTS + (chn._COST_OUTS if wc else ())
+            got = chn.chain(model, contacts, *args, None, *cost)
+            want = chn.chain_plain(model, contacts, *args, None, *cost)
+            err = _compare(f"K6 cost={int(wc)}", [got[n] for n in names],
+                           [want[n] for n in names], dtype)
+            k6[wc] = (model, contacts, args, cost, got, err)
         if dtype != torch.float32:
             continue
         S = x["M"].shape[0]
@@ -293,140 +375,248 @@ def phase_kernels(dev):
         w = 2 * nv + nu
         Xc = torch.cat([x["dgdq"], x["dgdf"]], dim=-1).contiguous()
         specs = [
-            ("K1", "k1", cd.k1, cd.k1_plain, k1_in, e1,
+            ("K1", "condense_k1", cd.k1, cd.k1_plain, k1_in, e1,
              S * flops_k1(nv, nf_, w), None,
              "robotoc_tpu/ops/pallas_condense.py:331"),
-            ("Kc", "kc", cd.kc, cd.kc_plain, kc_in, ec,
+            ("Kc", "condense_kc", cd.kc, cd.kc_plain, kc_in, ec,
              S * flops_kc(nv, nf_, 20),
              lambda: torch.einsum("sr,sri,srj->sij", x["d_cone"], Xc, Xc),
              "robotoc_tpu/ops/pallas_condense.py:348"),
-            ("K2", "k2", cd.k2, cd.k2_plain, k2_in, e2,
+            ("K2", "condense_k2", cd.k2, cd.k2_plain, k2_in, e2,
              S * flops_k2(nv, nu, nf_), None,
              "robotoc_tpu/ops/pallas_condense.py:377"),
-            ("K3", "k3", cd.k3, cd.k3_plain, k3_in, e3,
+            ("K3", "condense_k3", cd.k3, cd.k3_plain, k3_in, e3,
              S * flops_k3(nv, nu), None,
              "robotoc_tpu/ops/pallas_condense.py:399"),
         ]
         for name, fn_name, kern, plain, args, err, flops, lib, repl in specs:
             outs = kern(*args)
-            b_ms, b_by = bound(nbytes(*args) + nbytes(*outs), flops, dtype)
-            recs[name] = dict(
-                name=f"{name} condense_{fn_name}", route="cuda",
-                source="robotoc_tpu_torch/csrc/condense.cu", replaces=repl,
-                launches=None, max_abs_err=err,
-                ms=cuda_ms(lambda: kern(*args)),
-                plain_ms=cuda_ms(lambda: plain(*args), reps=5),
-                bound_ms=b_ms, bound_by=b_by,
-                library_ms=cuda_ms(lib) if lib is not None else None)
-        l_in = lqr_inputs(0, dtype, dev)
-        outs = bs.bwd(*l_in)
-        b_ms, b_by = bound(nbytes(*l_in) + nbytes(*outs),
-                           B * N * flops_k5_step(36, 12, 0), dtype)
-        recs["K5"] = dict(
-            name="K5 riccati_bwd", route="cuda",
-            source="robotoc_tpu_torch/csrc/riccati_bwd.cu",
-            replaces="robotoc_tpu/riccati/pallas_scan.py:146",
-            launches=None, max_abs_err=e5[0],
-            ms=cuda_ms(lambda: bs.bwd(*l_in)),
-            plain_ms=cuda_ms(lambda: bs.bwd_plain(*l_in), reps=5),
-            bound_ms=b_ms, bound_by=b_by, library_ms=None)
-    for r in recs.values():
+            recs[name] = _record(
+                f"{name} {fn_name}", "robotoc_tpu_torch/csrc/condense.cu",
+                repl, err, cuda_ms(lambda: kern(*args)),
+                cuda_ms(lambda: plain(*args), reps=5),
+                bound(nbytes(*args) + nbytes(*outs), flops, dtype),
+                cuda_ms(lib) if lib is not None else None)
+        # K5: the main path's switching branch at the trot shapes; the
+        # nf = 0 branch (standing path) beside it
+        for nf, l_in, err, Nh in ((12, l12, e512, Nt), (0, l0, e50, N)):
+            outs = bs.bwd(*l_in)
+            rec = _record(
+                "K5 riccati_bwd", "robotoc_tpu_torch/csrc/riccati_bwd.cu",
+                "robotoc_tpu/riccati/pallas_scan.py:146", err,
+                cuda_ms(lambda: bs.bwd(*l_in)),
+                cuda_ms(lambda: bs.bwd_plain(*l_in), reps=5),
+                bound(nbytes(*l_in) + nbytes(*outs),
+                      B * Nh * flops_k5_step(36, 12, nf), dtype), None)
+            if nf:
+                recs["K5"] = rec
+            else:
+                extra["K5 nf=0 (standing, N=20)"] = rec
+        for wc in (True, False):
+            model, contacts, args, cost, got, err = k6[wc]
+            S6 = args[0].shape[0]
+            rec = _record(
+                "K6 chain", "robotoc_tpu_torch/csrc/chain.cu",
+                "robotoc_tpu/ops/pallas_chain.py:1110", err,
+                cuda_ms(lambda: chn.chain(model, contacts, *args, None,
+                                          *cost)),
+                cuda_ms(lambda: chn.chain_plain(model, contacts, *args, None,
+                                                *cost), reps=3, warmup=1),
+                bound(nbytes(*args, *cost) + nbytes(*got.values()),
+                      S6 * flops_k6(18, 13, 4, wc), dtype), None)
+            if wc:
+                recs["K6"] = rec
+            else:
+                extra["K6 cost=0 (standing, 2560 stages)"] = rec
+    for r in list(recs.values()) + list(extra.values()):
         print(f"  {r['name']:20s} {r['ms']:.4f} ms  plain {r['plain_ms']:.3f}"
               f" ms  bound {r['bound_ms']:.4f} ms ({r['bound_by']})"
               f"  library {r['library_ms']}")
+    print("kernels_extra: " + json.dumps(extra))
     return recs
 
 
-def _mpc_step(solver, p, sol, q0s, v0s):
+def _cast_model(model, dtype):
+    """The model with its tensors cast to dtype (the kernels take one
+    dtype for constants and data)."""
+    return dataclasses.replace(model, **{
+        f.name: getattr(model, f.name).to(dtype)
+        for f in dataclasses.fields(model)
+        if isinstance(getattr(model, f.name), torch.Tensor)
+        and getattr(model, f.name).dtype.is_floating_point})
+
+
+def _cast_contacts(contacts, dtype):
+    return dataclasses.replace(contacts, kp=contacts.kp.to(dtype),
+                               kv=contacts.kv.to(dtype),
+                               rect=contacts.rect.to(dtype))
+
+
+COUNTERS = {"K1": cd.k1, "Kc": cd.kc, "K2": cd.k2, "K3": cd.k3,
+            "K5": bs.bwd, "K6": chn.chain}
+
+
+def reset_counts():
+    for fn in COUNTERS.values():
+        fn.launches = 0
+
+
+def read_counts():
+    return {k: fn.launches for k, fn in COUNTERS.items()}
+
+
+def _mpc_step(solver, grid, sol, q0s, v0s):
     kkts = []
     for _ in range(2):
-        sol, kkt, _, _ = solver.update(p.grid, q0s, v0s, sol)
+        sol, kkt, _, _ = solver.update(grid, q0s, v0s, sol)
         kkts.append(kkt)
     return sol, kkts
 
 
-def phase_slice(dev):
-    """The main path at full width; returns the launch counts and timings."""
-    p = problems.anymal_standing(N=N, dtype=torch.float32, device=dev)
-    sol0, q0s, v0s = fleet_start(p, B)
-    mk = lambda k: OS.OCPSolver(   # noqa: E731
-        p.model, p.contacts, (p.cost,), p.limits, T=p.T, N=p.N,
-        options=OS.SolverOptions(use_kernels=k))
-    s_kern, s_plain = mk(True), mk(False)
-    _mpc_step(s_kern, p, sol0, q0s, v0s)            # warm-up
-    torch.cuda.synchronize()
-    cd.reset_launches()
-    bs.bwd.launches = 0
-    sol_k, kkt_k = _mpc_step(s_kern, p, sol0, q0s, v0s)   # the main path
-    torch.cuda.synchronize()
-    launches = {"K1": cd.k1.launches, "Kc": cd.kc.launches,
-                "K2": cd.k2.launches, "K3": cd.k3.launches,
-                "K5": bs.bwd.launches}
-    print(f"  launches in one MPC step (2 updates): {launches}")
-    check(all(v == 2 for v in launches.values()),
-          f"expected 1 launch of each kernel per update: {launches}")
-    for i, kkt in enumerate(kkt_k):
-        check(bool(torch.isfinite(kkt).all()), f"update {i}: KKT not "
-              "finite")
-    sol_p, kkt_p = _mpc_step(s_plain, p, sol0, q0s, v0s)
-    # agreement with the plain versions: KKT to 1e-3 relative; each
-    # solution field to 1e-2 of the largest change the plain MPC step made
-    # to it (float32 rounding through a stiff problem's Newton directions)
+def _agree(tag, sol0, out_k, out_p):
+    """Kernels vs plain versions after one MPC step: KKT to 1e-3
+    relative; each field to 1e-2 of the largest change the plain step
+    made to it (float32 rounding through a stiff problem's Newton
+    directions)."""
+    (sol_k, kkt_k), (sol_p, kkt_p) = out_k, out_p
     for i, (a, b) in enumerate(zip(kkt_k, kkt_p)):
         rel = float(((a - b).abs() / b.abs()).max())
-        check(rel <= 1e-3, f"update {i}: KKT kernel vs plain rel {rel:.2e}")
+        check(rel <= 1e-3, f"{tag} update {i}: KKT kernel vs plain rel "
+              f"{rel:.2e}")
     worst = {}
-    for name in ("q", "v", "a", "u", "f", "lmd", "gmm", "beta", "mu",
-                 "s_lim", "z_lim", "s_cone", "z_cone"):
+    for name in FIELDS:
         xk, xp = getattr(sol_k, name), getattr(sol_p, name)
         step = float((xp - getattr(sol0, name)).abs().max())
         err = float((xk - xp).abs().max())
         worst[name] = err / max(step, 1e-30)
-        check(err <= 1e-2 * step + 1e-6, f"{name}: kernel vs plain "
+        check(err <= 1e-2 * step + 1e-6, f"{tag} {name}: kernel vs plain "
               f"{err:.3e} > 1e-2 x step {step:.3e}")
-    print("  kernel vs plain, error / step: "
+    print(f"  {tag}: kernel vs plain, error / step: "
           + ", ".join(f"{k} {v:.1e}" for k, v in worst.items()))
-    print(f"  fleet KKT after the step: max {float(kkt_k[-1].max()):.4e}")
 
-    step_ms = host_ms(lambda: _mpc_step(s_kern, p, sol0, q0s, v0s))
-    step_plain_ms = host_ms(lambda: _mpc_step(s_plain, p, sol0, q0s, v0s))
-    # where the time of one update goes (host clock, synchronised phases)
-    sol_b, grid_b, q_b, v_b, _ = OS._fleet(sol0, p.grid, q0s, v0s)
-    lim, costs = p.limits, (p.cost,)
-    pre = OS.stage_inputs(p.model, p.contacts, lim, 1e-3, costs, sol_b,
-                          grid_b)
-    kin = {k: v for k, v in pre.items() if not k.startswith("aux_")}
-    built = OS._build(p.model, p.contacts, lim, 1e-3, costs, sol_b, grid_b,
-                      q_b, v_b)
-    parts = {
-        "stage_pre": host_ms(lambda: OS.stage_inputs(
-            p.model, p.contacts, lim, 1e-3, costs, sol_b, grid_b)),
-        "condense": host_ms(lambda: cd.condense(kin)),
-        "build": host_ms(lambda: OS._build(p.model, p.contacts, lim, 1e-3,
-                                           costs, sol_b, grid_b, q_b, v_b)),
-        "riccati": host_ms(lambda: bs.solve(built[0], built[2])),
-        "direction_and_step": host_ms(lambda: OS._direction_and_step(
-            p.model, p.contacts, lim, 1e-3, 0.995, sol_b, grid_b, built)),
-    }
-    dev_ms, top = device_time(lambda: s_kern.update(p.grid, q0s, v0s,
-                                                      sol0))
+
+def _run_path(tag, mk, grid, sol0, q0s, v0s, parts_fn):
+    """Drive one path: warm-up, counts reset, one MPC step through the
+    kernels, counts read; the same step on the plain versions; timings."""
+    s_kern, s_plain = mk(True), mk(False)
+    _mpc_step(s_kern, grid, sol0, q0s, v0s)            # warm-up
+    torch.cuda.synchronize()
+    reset_counts()
+    out_k = _mpc_step(s_kern, grid, sol0, q0s, v0s)    # the path
+    torch.cuda.synchronize()
+    launches = read_counts()
+    print(f"  {tag}: launches in one MPC step (2 updates): {launches}")
+    check(all(v == 2 for v in launches.values()),
+          f"{tag}: expected 1 launch of each kernel per update: {launches}")
+    for i, kkt in enumerate(out_k[1]):
+        check(bool(torch.isfinite(kkt).all()), f"{tag} update {i}: KKT not "
+              "finite")
+    out_p = _mpc_step(s_plain, grid, sol0, q0s, v0s)
+    _agree(tag, sol0, out_k, out_p)
+    print(f"  {tag}: fleet KKT after the step: max "
+          f"{float(out_k[1][-1].max()):.4e}")
+    step_ms = host_ms(lambda: _mpc_step(s_kern, grid, sol0, q0s, v0s))
+    step_plain_ms = host_ms(lambda: _mpc_step(s_plain, grid, sol0, q0s,
+                                              v0s))
+    parts = parts_fn()
+    dev_ms, top = device_time(lambda: s_kern.update(grid, q0s, v0s, sol0))
     out = dict(B=B, N=N, dtype="float32", ms_per_mpc_step=step_ms,
                mpc_updates_per_s=B / (step_ms * 1e-3),
                plain_ms_per_mpc_step=step_plain_ms,
-               ms_per_update_parts=parts,
-               device_ms_per_update=dev_ms,
+               ms_per_update_parts=parts, device_ms_per_update=dev_ms,
                device_idle_share=(None if dev_ms is None
                                   else 1.0 - dev_ms / (step_ms / 2)),
                top_device_kernels_ms=top,
-               fleet_max_kkt=float(kkt_k[-1].max()))
-    print(f"  ms per MPC step (2 updates, B={B}): {step_ms:.2f} with the "
-          f"kernels, {step_plain_ms:.2f} with the plain versions; "
+               fleet_max_kkt=float(out_k[1][-1].max()))
+    print(f"  {tag}: ms per MPC step (2 updates, B={B}): {step_ms:.2f} with "
+          f"the kernels, {step_plain_ms:.2f} with the plain versions; "
           f"{out['mpc_updates_per_s']:.1f} MPC updates/s")
-    print("  one update, by part (ms): "
+    print(f"  {tag}: one update, by part (ms): "
           + ", ".join(f"{k} {v:.2f}" for k, v in parts.items()))
-    print(f"  device time per update {dev_ms} ms (profiler), idle share "
-          f"{out['device_idle_share']}; top kernels {top}")
-    print("slice: " + json.dumps(out))
+    print(f"  {tag}: device time per update {dev_ms} ms (profiler), idle "
+          f"share {out['device_idle_share']}; top kernels {top}")
+    print(f"{tag}: " + json.dumps(out))
+    return launches, out
+
+
+def _parts(model, contacts, limits, costs, sol_b, grid_b, q_b, v_b,
+           n_imp, enable_sw, with_cost):
+    """Host time of the synchronised parts of one update (kernels on)."""
+    args, cost = chain_args(model, contacts, costs, sol_b, grid_b,
+                            with_cost)
+    pre = OS.stage_pre_all(model, contacts, limits, 1e-3, costs, sol_b,
+                           grid_b, n_imp=n_imp, use_chain=True)
+    kin = {k: v for k, v in pre.items() if not k.startswith("aux_")}
+    kw = dict(n_imp=n_imp, enable_sw=enable_sw, use_chain=True)
+    built = OS._build(model, contacts, limits, 1e-3, costs, sol_b, grid_b,
+                      q_b, v_b, **kw)
+    return {
+        "chain_K6": host_ms(lambda: chn.chain(model, contacts, *args, None,
+                                              *cost)),
+        "stage_pre_all": host_ms(lambda: OS.stage_pre_all(
+            model, contacts, limits, 1e-3, costs, sol_b, grid_b,
+            n_imp=n_imp, use_chain=True)),
+        "condense": host_ms(lambda: cd.condense(kin)),
+        "build": host_ms(lambda: OS._build(model, contacts, limits, 1e-3,
+                                           costs, sol_b, grid_b, q_b, v_b,
+                                           **kw)),
+        "riccati": host_ms(lambda: bs.solve(built[0], built[2])),
+        "direction_and_step": host_ms(lambda: OS._direction_and_step(
+            model, contacts, limits, 1e-3, 0.995, sol_b, grid_b, built,
+            n_imp=n_imp)),
+    }
+
+
+def phase_slice(dev):
+    """The standing path at full width (K6 without the cost fold)."""
+    p = problems.anymal_standing(N=N, dtype=torch.float32, device=dev)
+    _, (sol0, q0s, v0s) = standing_fleet(p, B)
+    costs = (p.cost,)
+    mk = lambda k: OS.OCPSolver(   # noqa: E731
+        p.model, p.contacts, costs, p.limits, T=p.T, N=p.N,
+        options=OS.SolverOptions(use_kernels=k))
+    sol_b, grid_b, q_b, v_b, _ = OS._fleet(sol0, p.grid, q0s, v0s)
+    return _run_path("slice", mk, p.grid, sol0, q0s, v0s, lambda: _parts(
+        p.model, p.contacts, p.limits, costs, sol_b, grid_b, q_b, v_b, 0,
+        False, False))
+
+
+def phase_trot(dev):
+    """The main path: the trot MPC update at full width, float32, then the
+    float64 convergence run of one unperturbed scenario."""
+    p = problems.anymal_trot(N=N, dtype=torch.float32, device=dev)
+    sol0, q0s, v0s = problems.fleet(p.solver, p.grid, p.q0, p.v0, B)
+    mpc = p.mpc
+    n_imp = mpc.n_reserved
+
+    def mk(k):
+        return OS.OCPSolver(p.model, mpc.contacts, p.costs, mpc.limits,
+                            T=p.T, N=p.N, n_reserved_events=n_imp,
+                            options=OS.SolverOptions(
+                                switching_constraints=True, use_kernels=k))
+
+    sol_b, grid_b, q_b, v_b, _ = OS._fleet(sol0, p.grid, q0s, v0s)
+    launches, out = _run_path("trot", mk, p.grid, sol0, q0s, v0s,
+                              lambda: _parts(
+                                  p.model, mpc.contacts, mpc.limits, p.costs,
+                                  sol_b, grid_b, q_b, v_b, n_imp, True,
+                                  True))
+    # float64, one unperturbed scenario, 15 updates through the kernels
+    p64 = problems.anymal_trot(N=N, dtype=torch.float64, device=dev)
+    sol = p64.solver.init_solution(p64.grid, p64.q0, p64.v0)
+    before = read_counts()
+    kkts = []
+    for _ in range(15):
+        sol, kkt, _, _ = p64.solver.update(p64.grid, p64.q0, p64.v0, sol)
+        kkts.append(float(kkt))
+    after = read_counts()
+    check(all(after[k] - before[k] == 15 for k in after),
+          f"trot f64 run bypassed a kernel: {before} -> {after}")
+    print("  trot f64, one scenario, KKT by update: "
+          + ", ".join(f"{k:.3e}" for k in kkts))
+    check(kkts[-1] < 1e-3, f"trot f64: KKT {kkts[-1]:.3e} >= 1e-3 after 15 "
+          "updates")
+    out["f64_kkt_after_15"] = kkts[-1]
     return launches, out
 
 
@@ -436,10 +626,12 @@ def phase_golden(dev):
     solver = OS.OCPSolver(p.model, p.contacts, (p.cost,), p.limits, T=p.T,
                           N=p.N)
     sol = solver.init_solution(p.grid, p.q0, p.v0)
-    before = bs.bwd.launches
+    before = read_counts()
     for _ in range(16):
         sol, kkt, _, _ = solver.update(p.grid, p.q0, p.v0, sol)
-    check(bs.bwd.launches - before == 16, "golden run bypassed the kernels")
+    after = read_counts()
+    check(all(after[k] - before[k] == 16 for k in after),
+          "golden run bypassed a kernel")
     kkt = float(kkt)
     check(kkt < 1e-6, f"golden: kkt {kkt:.3e} >= 1e-6")
     errs = {}
@@ -471,7 +663,9 @@ def main(phases=ALL_PHASES):
         phase_build()
     recs = phase_kernels(dev) if "kernels" in phases else {}
     if "slice" in phases:
-        launches, _ = phase_slice(dev)
+        phase_slice(dev)
+    if "trot" in phases:
+        launches, _ = phase_trot(dev)
         for name, n in launches.items():
             if name in recs:
                 recs[name]["launches"] = n

@@ -20,7 +20,9 @@ import torch
 from .constraints.joint_limits import JointLimits
 from .core.structs import LQRData
 from .costs.config_cost import ConfigurationSpaceCost
+from .costs.task_cost import BaseRotationCost, MultiFrameTaskCost
 from .device import resolve
+from .mpc.refs import StepBaseRotRef, StepCoMRef, StepSwingFootRef
 from .models.contacts import ContactModel
 from .models.robot import RobotModel
 from .planner.contact_sequence import GridData
@@ -35,9 +37,10 @@ def _tensor(x, dtype, device):
                            device=device)
 
 
-def _build(cls, fields: dict, dtype, device, drop_none=()):
+def _build(cls, fields: dict, dtype, device, drop_none=(), nested=None):
     """cls(**fields) with array fields converted. Fields named in
-    `drop_none` are accepted only when None (not ported yet)."""
+    `drop_none` are accepted only when None (not ported yet); `nested`
+    maps a field to the converter of its own field dict."""
     dev = resolve(device)
     names = {f.name for f in dataclasses.fields(cls)}
     kw = {}
@@ -49,7 +52,9 @@ def _build(cls, fields: dict, dtype, device, drop_none=()):
             continue
         if name not in names:
             raise ValueError(f"{cls.__name__} has no field {name!r}")
-        if val is None or isinstance(val, (str, bool, int, float, tuple)):
+        if nested and name in nested:
+            kw[name] = nested[name](val, dtype=dtype, device=device)
+        elif val is None or isinstance(val, (str, bool, int, float, tuple)):
             kw[name] = val
         else:
             kw[name] = _tensor(val, dtype, dev)
@@ -86,3 +91,34 @@ def solution(fields: dict, dtype=torch.float64, device=None) -> Solution:
 
 def lqr_data(fields: dict, dtype=torch.float64, device=None) -> LQRData:
     return _build(LQRData, fields, dtype, device)
+
+
+def step_swing_foot_ref(fields: dict, dtype=torch.float64,
+                        device=None) -> StepSwingFootRef:
+    return _build(StepSwingFootRef, fields, dtype, device)
+
+
+def step_com_ref(fields: dict, dtype=torch.float64,
+                 device=None) -> StepCoMRef:
+    return _build(StepCoMRef, fields, dtype, device)
+
+
+def step_base_rot_ref(fields: dict, dtype=torch.float64,
+                      device=None) -> StepBaseRotRef:
+    return _build(StepBaseRotRef, fields, dtype, device)
+
+
+def base_rotation_cost(fields: dict, dtype=torch.float64,
+                       device=None) -> BaseRotationCost:
+    """fields["ref"]: the field dict of a StepBaseRotRef."""
+    return _build(BaseRotationCost, fields, dtype, device,
+                  nested={"ref": step_base_rot_ref})
+
+
+def multi_frame_task_cost(fields: dict, dtype=torch.float64,
+                          device=None) -> MultiFrameTaskCost:
+    """fields["foot_refs"] / ["com_ref"]: the field dicts of a
+    StepSwingFootRef stacked over the feet and of a StepCoMRef."""
+    return _build(MultiFrameTaskCost, fields, dtype, device,
+                  nested={"foot_refs": step_swing_foot_ref,
+                          "com_ref": step_com_ref})

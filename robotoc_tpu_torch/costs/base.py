@@ -51,14 +51,54 @@ class TerminalQuad(NamedTuple):
         return TerminalQuad(*(a + b for a, b in zip(self, o)))
 
 
+class ImpactQuad(NamedTuple):
+    cost: torch.Tensor
+    lq: torch.Tensor
+    lv: torch.Tensor
+    ldv: torch.Tensor
+    Qqq: torch.Tensor
+    Qvv: torch.Tensor
+    Qdvdv: torch.Tensor
+
+    @staticmethod
+    def zeros(nv, dtype, device):
+        def z(*s):
+            return torch.zeros(s, dtype=dtype, device=device)
+        return ImpactQuad(z(), z(nv), z(nv), z(nv), z(nv, nv), z(nv, nv),
+                          z(nv, nv))
+
+    def __add__(self, o):
+        return ImpactQuad(*(a + b for a, b in zip(self, o)))
+
+
+def _takes_kin(comp, kin):
+    return kin is not None and getattr(comp, "kin_frame_ids", None) == kin[0]
+
+
 def quadratize_stage(components, model, nf, q, v, a, u, f, t, dt, kin=None):
-    """Sum of the components' stage quadratizations. `kin` (pre-computed
-    task kinematics from a shared chain) is not supported yet."""
-    if kin is not None:
-        raise NotImplementedError("fused task kinematics are not ported yet")
+    """Sum of the components' stage quadratizations. kin (optional):
+    (frame_ids, task, Jq), task kinematics from the stage's shared chain;
+    components whose `kin_frame_ids` match take it instead of running
+    their own kinematics."""
     out = StageQuad.zeros(model.nv, model.dimu, nf, q.dtype, q.device)
     for comp in components:
-        out = out + comp.quadratize_stage(model, nf, q, v, a, u, f, t, dt)
+        if _takes_kin(comp, kin):
+            out = out + comp.quadratize_stage_kin(model, nf, q, v, a, u, f,
+                                                  t, dt, kin[1], kin[2])
+        else:
+            out = out + comp.quadratize_stage(model, nf, q, v, a, u, f, t,
+                                              dt)
+    return out
+
+
+def quadratize_impact(components, model, q, v, dv, t, kin=None):
+    out = ImpactQuad.zeros(model.nv, q.dtype, q.device)
+    for comp in components:
+        if _takes_kin(comp, kin):
+            out = out + comp.quadratize_impact_kin(model, q, v, dv, t,
+                                                   kin[1], kin[2])
+        else:
+            out = out + comp.quadratize_impact(model, q, v, dv, t)
     return out
 
 

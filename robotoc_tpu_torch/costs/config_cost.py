@@ -38,6 +38,10 @@ class ConfigurationSpaceCost:
         c, lq, lv, Wq, Wv = quadratize_terminal(model, self, q, v)
         return TerminalQuad(cost=c, lq=lq, lv=lv, Qqq=Wq, Qvv=Wv)
 
+    def quadratize_impact(self, model, q, v, dv, t):
+        from .base import ImpactQuad
+        return ImpactQuad(*quadratize_impact(model, self, q, v, dv))
+
 
 def make_config_cost(model: rm.RobotModel, q_ref=None,
                      **weights) -> ConfigurationSpaceCost:
@@ -103,3 +107,20 @@ def quadratize_terminal(model, cost, q, v):
         Wq = J.T @ (cost.q_weight_terminal.unsqueeze(-1) * J)
     return (c, lq, cost.v_weight_terminal * (v - cost.v_ref), Wq,
             torch.diag(cost.v_weight_terminal))
+
+
+def quadratize_impact(model, cost, q, v, dv):
+    """(cost, lq, lv, ldv, Wq, Wv, Wdv) with the impact weights."""
+    qdiff, J = _qdiff_and_jac(model, cost, q)
+    c = 0.5 * (torch.sum(cost.q_weight_impact * qdiff ** 2)
+               + torch.sum(cost.v_weight_impact * (v - cost.v_ref) ** 2)
+               + torch.sum(cost.dv_weight_impact * dv ** 2))
+    if J is None:
+        lq = cost.q_weight_impact * qdiff
+        Wq = torch.diag(cost.q_weight_impact)
+    else:
+        lq = J.T @ (cost.q_weight_impact * qdiff)
+        Wq = J.T @ (cost.q_weight_impact.unsqueeze(-1) * J)
+    return (c, lq, cost.v_weight_impact * (v - cost.v_ref),
+            cost.dv_weight_impact * dv, Wq, torch.diag(cost.v_weight_impact),
+            torch.diag(cost.dv_weight_impact))

@@ -5,6 +5,7 @@
 // versions. Build: g++ -O2 -std=c++17 -shared -fPIC host_shim.cpp.
 #include <vector>
 
+#include "chain_stage.cuh"
 #include "condense_stage.cuh"
 #include "riccati_stage.cuh"
 
@@ -52,6 +53,14 @@ void riccati(int Bn, int N, const double* A, const double* B,
            NFR ? Mx + s * NFR * NX : nullptr, NFR ? mx + s * NFR : nullptr,
            ws.data(), 0, 1);
   }
+}
+template <bool WC>
+void chain(const double* consts, const int* topo, const double* const* ins,
+           double* const* outs, long long S) {
+  using K = rtt::ChainStage<double, NV, 13, 4, WC>;
+  std::vector<double> ws(K::WS);
+  for (long long s = 0; s < S; ++s)
+    K::run(consts, topo, ins, outs, s, ws.data(), 0, 1);
 }
 }  // namespace
 
@@ -159,6 +168,18 @@ int rtt_host_riccati_bwd(int nf, int Bn, int N, const double* A,
                 sw, QxxN, lxN, K, k, P, p, Mx, mx);
   else
     return -1;
+  return 0;
+}
+
+// K6 on S stages (ANYmal: nv 18, 13 joints, 4 point feet); ins/outs in
+// the order of ops/chain.py.
+int rtt_host_chain(int with_cost, const double* consts, const int* topo,
+                   const double* const* ins, double* const* outs,
+                   long long S) {
+  if (with_cost)
+    chain<true>(consts, topo, ins, outs, S);
+  else
+    chain<false>(consts, topo, ins, outs, S);
   return 0;
 }
 

@@ -280,26 +280,64 @@ def _rnea_backward(model, PL_R, PL_p, VS, A_tot, f_joint):
     return torch.stack(tau, dim=0)
 
 
+def _task_outputs(model, contacts, RS, PS):
+    """(3 nc + 3,) task vector from a computed forward sweep: the world
+    positions of the contact frames (contact order), then the CoM. The
+    gait cost stack's kinematics (costs/task_cost.MultiFrameTaskCost) as a
+    by-product of the shared chain."""
+    fids = list(contacts.frame_ids)
+    pars = [model.frame_parents[f] for f in fids]
+    feet = rm._mv(RS[pars], model.frame_p[fids]) + PS[pars]
+    ci = rm._mv(RS, model.com) + PS
+    com = (torch.sum(model.mass.unsqueeze(-1) * ci, dim=-2)
+           / torch.sum(model.mass))
+    return torch.cat([feet.reshape(-1), com])
+
+
+def _cone_rows(contacts, cs, typ, Rw, fl, fric):
+    """Cone values (k, rows) and force Jacobian blocks (k, rows, typ) of
+    the contacts `cs` of one type."""
+    from ..constraints import friction_cone as fcone
+    if typ == POINT:
+        Cm = fcone.cone_matrix(fric[cs])                     # (k, 5, 3)
+        return rm._mv(Cm, rm._mv(Rw, fl)), Cm @ Rw
+    W = fcone.wrench_cone_matrix(fric[cs], contacts.rect[cs, 0],
+                                 contacts.rect[cs, 1])
+    return rm._mv(W, fl), W
+
+
+def _contact_groups(model, contacts, device):
+    """Per contact type: (typ, contacts, parent joints, frame ids, force
+    row indices)."""
+    out = []
+    for typ in (POINT, SURFACE):
+        cs = [c for c in range(contacts.n_contacts)
+              if contacts.types[c] == typ]
+        if cs:
+            fids = [contacts.frame_ids[c] for c in cs]
+            out.append((typ, cs, [model.frame_parents[f] for f in fids],
+                        fids, torch.as_tensor(
+                            [[contacts.f_offsets[c] + j for j in range(typ)]
+                             for c in cs], device=device)))
+    return out
+
+
 def fused_stage_outputs(model, contacts: ContactModel, q, v, a, f_eff,
-                        fric, p_ref, R_ref=None, gravity_on=True):
-    """(tau, C, g_cone, dgdf) for one sample from one shared chain.
+                        fric, p_ref, R_ref=None, gravity_on=True,
+                        with_task=False):
+    """(tau, C, g_cone, dgdf[, task]) for one sample from one shared chain.
 
     tau: RNEA(q, v, a) - J^T f (nv,); C: stacked Baumgarte residuals
     (max_dimf,), unmasked; g: stacked cone residuals (dimc_cone,);
-    dgdf: (dimc_cone, max_dimf) block-diagonal cone force Jacobian."""
-    from ..constraints import friction_cone as fcone
+    dgdf: (dimc_cone, max_dimf) block-diagonal cone force Jacobian;
+    task (with_task): contact-frame world positions + CoM (3 nc + 3,)."""
     f_joint = contact_forces_to_joint(model, contacts, f_eff)
     PL_R, PL_p, RS, PS, VS, AS, GP = _fused_forward(model, q, v, a,
                                                     gravity_on)
     tau = _rnea_backward(model, PL_R, PL_p, VS, AS + GP, f_joint)
     res_c, g_c, dg_c = {}, {}, {}
-    for typ in (POINT, SURFACE):
-        cs = [c for c in range(contacts.n_contacts)
-              if contacts.types[c] == typ]
-        if not cs:
-            continue
-        fids = [contacts.frame_ids[c] for c in cs]
-        pars = [model.frame_parents[f] for f in fids]
+    for typ, cs, pars, fids, f_idx in _contact_groups(model, contacts,
+                                                      q.device):
         fR, fp = model.frame_R[fids], model.frame_p[fids]
         vf = motion_transform_inv(fR, fp, VS[pars])
         af = motion_transform_inv(fR, fp, AS[pars])
@@ -307,56 +345,172 @@ def fused_stage_outputs(model, contacts: ContactModel, q, v, a, f_eff,
         pw = rm._mv(RS[pars], fp) + PS[pars]
         kv = contacts.kv[cs].unsqueeze(-1)
         kp = contacts.kp[cs].unsqueeze(-1)
-        f_idx = torch.as_tensor([[contacts.f_offsets[c] + j
-                                  for j in range(typ)] for c in cs],
-                                device=q.device)
-        fl = f_eff[f_idx]                                    # (k, typ)
         if typ == POINT:
             a_cl = af[:, :3] + lie.cross3(vf[:, 3:], vf[:, :3])
             res = a_cl + kv * vf[:, :3] + kp * (pw - p_ref[cs])
-            Cm = fcone.cone_matrix(fric[cs])                 # (k, 5, 3)
-            gv = rm._mv(Cm, rm._mv(Rw, fl))
-            dg = Cm @ Rw
         else:
             Rr = (torch.eye(3, dtype=q.dtype, device=q.device).expand(
                 Rw.shape) if R_ref is None else R_ref[cs])
             Rrt = Rr.transpose(-1, -2)
             err6 = lie.se3_log(Rrt @ Rw, rm._mv(Rrt, pw - p_ref[cs]))
             res = af + kv * vf + kp * err6
-            W = fcone.wrench_cone_matrix(fric[cs], contacts.rect[cs, 0],
-                                         contacts.rect[cs, 1])
-            gv = rm._mv(W, fl)
-            dg = W
+        gv, dg = _cone_rows(contacts, cs, typ, Rw, f_eff[f_idx], fric)
         for n, c in enumerate(cs):
             res_c[c], g_c[c], dg_c[c] = res[n], gv[n], dg[n]
     order = range(contacts.n_contacts)
     C = torch.cat([res_c[c] for c in order])
     g = torch.cat([g_c[c] for c in order])
     dgdf = contacts.block_diag_cone([dg_c[c] for c in order])
+    if with_task:
+        return tau, C, g, dgdf, _task_outputs(model, contacts, RS, PS)
     return tau, C, g, dgdf
 
 
+def _split_jacobian(J, nv, nf, ng, n_blocks, with_task):
+    """Rows (tau | C | g | task) and tangent blocks of one fused jacfwd."""
+    def cols(rows):
+        return tuple(rows[:, k * nv:(k + 1) * nv] for k in range(n_blocks))
+    Jt, Jc, Jg = J[:nv], J[nv:nv + nf], J[nv + nf:nv + nf + ng]
+    out = (cols(Jt), cols(Jc), Jg[:, :nv])
+    if with_task:
+        out += (J[nv + nf + ng:, :nv],)
+    return out
+
+
 def fused_stage_derivatives(model, contacts, q, v, a, f_eff, fric,
-                            p_ref, R_ref=None, gravity_on=True):
+                            p_ref, R_ref=None, gravity_on=True,
+                            with_task=False):
     """Values + Jacobians of (tau, C, g) for one sample with ONE fused
     3nv-tangent jacfwd of the shared chain. Returns
-      ((tau, C, g, dgdf), (dtau_dq, dtau_dv, M), (dCdq, dCdv, Jc), dgdq)."""
+      ((tau, C, g, dgdf), (dtau_dq, dtau_dv, M), (dCdq, dCdv, Jc), dgdq)
+    plus, with_task, a trailing (task, dtask_dq) pair: the task-cost rows
+    ride the same chain and the same q-tangents."""
     nv = model.nv
-    nf = contacts.max_dimf
-    tau, C, g, dgdf = fused_stage_outputs(model, contacts, q, v, a, f_eff,
-                                          fric, p_ref, R_ref, gravity_on)
+    out = fused_stage_outputs(model, contacts, q, v, a, f_eff, fric, p_ref,
+                              R_ref, gravity_on, with_task=with_task)
     z = torch.zeros(3 * nv, dtype=q.dtype, device=q.device)
 
     def f_all(e):
         o2 = fused_stage_outputs(
             model, contacts, rm.integrate(model, q, e[:nv]),
             v + e[nv:2 * nv], a + e[2 * nv:], f_eff, fric, p_ref, R_ref,
-            gravity_on)
-        return torch.cat([o2[0], o2[1], o2[2]])
+            gravity_on, with_task=with_task)
+        return torch.cat([o2[0], o2[1], o2[2]] + list(o2[4:]))
 
-    J = jacfwd(f_all)(z)
-    Jt, Jc, Jg = J[:nv], J[nv:nv + nf], J[nv + nf:]
-    return ((tau, C, g, dgdf),
-            (Jt[:, :nv], Jt[:, nv:2 * nv], Jt[:, 2 * nv:]),
-            (Jc[:, :nv], Jc[:, nv:2 * nv], Jc[:, 2 * nv:]),
-            Jg[:, :nv])
+    jac = _split_jacobian(jacfwd(f_all)(z), nv, contacts.max_dimf,
+                          contacts.dimc_cone, 3, with_task)
+    base = (out[:4],) + jac[:3]
+    return base + ((out[4], jac[3]),) if with_task else base
+
+
+# ---------------------------------------------------------------------------
+# Impacts
+# ---------------------------------------------------------------------------
+
+def _frame_state(model, contacts, c, q, v, a):
+    """(R_w, p_w, v_local, a_local_spatial) of contact frame c."""
+    vs, as_, Rs, ps = joint_motion_state(model, q, v, a)
+    fid = contacts.frame_ids[c]
+    par = model.frame_parents[fid]
+    fR, fp = model.frame_R[fid], model.frame_p[fid]
+    return (Rs[par] @ fR, rm._mv(Rs[par], fp) + ps[par],
+            motion_transform_inv(fR, fp, vs[par]),
+            motion_transform_inv(fR, fp, as_[par]))
+
+
+def impact_velocity_residual(model, contacts: ContactModel, q, v):
+    """Post-impact contact-frame velocity: linear (point) or spatial
+    (surface), stacked (max_dimf,)."""
+    res = []
+    zeros = torch.zeros_like(v)
+    for c in range(contacts.n_contacts):
+        vf = _frame_state(model, contacts, c, q, v, zeros)[2]
+        res.append(vf[..., :3] if contacts.types[c] == POINT else vf)
+    return torch.cat(res, dim=-1)
+
+
+def contact_position_residual(model, contacts: ContactModel, q, p_ref):
+    """World contact-position error (max_dimf of point contacts)."""
+    R_w, p_w = rm.forward_kinematics(model, q)
+    return torch.cat([rm.frame_placement(model, contacts.frame_ids[c], R_w,
+                                         p_w)[1] - p_ref[..., c, :]
+                      for c in range(contacts.n_contacts)], dim=-1)
+
+
+def impact_velocity_derivatives(model, contacts, q, v):
+    """(d/dq, d/dv) of impact_velocity_residual for one sample."""
+    nv = model.nv
+    z = torch.zeros(2 * nv, dtype=q.dtype, device=q.device)
+    J = jacfwd(lambda e: impact_velocity_residual(
+        model, contacts, rm.integrate(model, q, e[:nv]), v + e[nv:]))(z)
+    return J[..., :nv], J[..., nv:]
+
+
+def contact_position_derivative(model, contacts, q, p_ref):
+    z = torch.zeros(model.nv, dtype=q.dtype, device=q.device)
+    return jacfwd(lambda e: contact_position_residual(
+        model, contacts, rm.integrate(model, q, e), p_ref))(z)
+
+
+def _velocity_forward(model, PL_R, PL_p, vpost):
+    """Velocity-only propagation through fixed placements: (nj, 6)."""
+    VP = [None] * model.nj
+    for i in range(model.nj):
+        vJ = rm._joint_motion(model, i, vpost)
+        par = model.parents[i]
+        VP[i] = vJ if par < 0 else (
+            motion_transform_inv(PL_R[i], PL_p[i], VP[par]) + vJ)
+    return torch.stack(VP, dim=0)
+
+
+def fused_impact_outputs(model, contacts: ContactModel, q, dv, vpost,
+                         lam_eff, fric, with_task=False):
+    """(tau_imp, Cvel, g_cone, dgdf[, task]) of an impact stage from one
+    shared chain: impulse dynamics RNEA_impact(q, dv) - J^T Lambda, the
+    post-impact contact velocity at (q, vpost), the cone on Lambda."""
+    f_joint = contact_forces_to_joint(model, contacts, lam_eff)
+    PL_R, PL_p, RS, PS, VS0, AS, _ = _fused_forward(
+        model, q, torch.zeros_like(dv), dv, gravity_on=False)
+    tau = _rnea_backward(model, PL_R, PL_p, VS0, AS, f_joint)
+    VP = _velocity_forward(model, PL_R, PL_p, vpost)
+    res_c, g_c, dg_c = {}, {}, {}
+    for typ, cs, pars, fids, f_idx in _contact_groups(model, contacts,
+                                                      q.device):
+        fR, fp = model.frame_R[fids], model.frame_p[fids]
+        vf = motion_transform_inv(fR, fp, VP[pars])
+        res = vf[:, :3] if typ == POINT else vf
+        gv, dg = _cone_rows(contacts, cs, typ, RS[pars] @ fR,
+                            lam_eff[f_idx], fric)
+        for n, c in enumerate(cs):
+            res_c[c], g_c[c], dg_c[c] = res[n], gv[n], dg[n]
+    order = range(contacts.n_contacts)
+    C = torch.cat([res_c[c] for c in order])
+    g = torch.cat([g_c[c] for c in order])
+    dgdf = contacts.block_diag_cone([dg_c[c] for c in order])
+    if with_task:
+        return tau, C, g, dgdf, _task_outputs(model, contacts, RS, PS)
+    return tau, C, g, dgdf
+
+
+def fused_impact_derivatives(model, contacts, q, dv, v, lam_eff, fric,
+                             with_task=False):
+    """Values + Jacobians of an impact stage with one fused jacfwd over
+    (dq, ddv): the post-impact velocity residual depends on v and dv only
+    through vpost = v + dv, so dC/dv rides the ddv tangents. Returns
+    ((tau, C, g, dgdf), (dtau_dq, Mi), (dCdq, Jc), dgdq) plus, with_task,
+    a trailing (task, dtask_dq) pair."""
+    nv = model.nv
+    out = fused_impact_outputs(model, contacts, q, dv, v + dv, lam_eff,
+                               fric, with_task=with_task)
+    z = torch.zeros(2 * nv, dtype=q.dtype, device=q.device)
+
+    def f_all(e):
+        o2 = fused_impact_outputs(
+            model, contacts, rm.integrate(model, q, e[:nv]), dv + e[nv:],
+            v + dv + e[nv:], lam_eff, fric, with_task=with_task)
+        return torch.cat([o2[0], o2[1], o2[2]] + list(o2[4:]))
+
+    jac = _split_jacobian(jacfwd(f_all)(z), nv, contacts.max_dimf,
+                          contacts.dimc_cone, 2, with_task)
+    base = (out[:4],) + jac[:3]
+    return base + ((out[4], jac[3]),) if with_task else base

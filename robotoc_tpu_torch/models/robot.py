@@ -168,6 +168,11 @@ def difference(model: RobotModel, q0, q1):
     return torch.cat([nu, qj1 - qj0], dim=-1)
 
 
+def interpolate(model: RobotModel, q0, q1, t):
+    """q0 (+) t (q1 (-) q0); t broadcasts against the tangent."""
+    return integrate(model, q0, t * difference(model, q0, q1))
+
+
 def neutral(model: RobotModel):
     q = torch.zeros(model.nq, dtype=model.dtype, device=model.device)
     if model.floating_base:
@@ -279,6 +284,19 @@ def frame_placement(model: RobotModel, fid: int, R_w, p_w):
         return fR.expand(shape + (3, 3)), fp.expand(shape + (3,))
     Rp = R_w[..., par, :, :]
     return Rp @ fR, _mv(Rp, fp) + p_w[..., par, :]
+
+
+def frame_position(model: RobotModel, fid: int, q):
+    R_w, p_w = forward_kinematics(model, q)
+    return frame_placement(model, fid, R_w, p_w)[1]
+
+
+def com(model: RobotModel, q):
+    """World centre of mass (..., 3)."""
+    R_w, p_w = forward_kinematics(model, q)
+    ci = _mv(R_w, model.com) + p_w
+    return (torch.sum(model.mass.unsqueeze(-1) * ci, dim=-2)
+            / torch.sum(model.mass))
 
 
 def _joint_motion(model: RobotModel, i: int, vec):

@@ -64,27 +64,41 @@ class StageBlocks(NamedTuple):
 def stage_pre(model, contacts, costs, limits, t, dt, barrier,
               q, v, a, u, f, beta, mu, lmd, gmm, lmd_n, gmm_n,
               q_n, v_n, s_lim, z_lim, s_cone, z_cone,
-              cmask, p_ref, fric, R_ref=None):
+              cmask, p_ref, fric, R_ref=None, chain_out=None):
     """Everything BEFORE the dense condensing for one stage: fused chain
     derivatives, cost quadratization, PDIPM condensing vectors, state
     equation and full-KKT diagnostics. Returns the condense inputs
-    (ops/condense.IN_NAMES) plus pass-through fields prefixed "aux_"."""
+    (ops/condense.IN_NAMES) plus pass-through fields prefixed "aux_".
+
+    chain_out: this stage's outputs of the chain kernel K6 (ops/chain),
+    computed for every stage at once by the solver. Its task rows feed the
+    cost when the stack folds task kinematics; its cq_*/se_* outputs
+    (with_cost) replace the cost quadratization and the state-equation
+    base blocks."""
     nv, nu_dim = model.nv, model.dimu
     nf = contacts.max_dimf
     dtype, dev = q.dtype, q.device
     rowmask = contacts.force_mask(cmask)
     cone_mask = contacts.cone_mask(cmask) > 0
-    if cost_base.kin_fold_frames(costs) == contacts.frame_ids:
-        raise NotImplementedError("fused task-cost kinematics are not "
-                                  "ported yet")
+    fold = cost_base.kin_fold_frames(costs) == contacts.frame_ids
 
     f_eff = f * rowmask
     eye_u = torch.eye(nu_dim, dtype=dtype, device=dev)
     Sact = torch.cat([torch.zeros((nu_dim, nv - nu_dim), dtype=dtype,
                                   device=dev), eye_u], dim=-1)
-    ((tau, C_raw, g_cone, dgdf), (dIDdq, dIDdv, M),
-     (dCdq, dCdv, J), dgdq) = ct.fused_stage_derivatives(
-        model, contacts, q, v, a, f_eff, fric, p_ref, R_ref)
+    if chain_out is not None:
+        co = chain_out
+        tau, C_raw, g_cone, dgdf = co["tau"], co["C"], co["g"], co["dgdf"]
+        dIDdq, dIDdv, M = co["dtau_dq"], co["dtau_dv"], co["M"]
+        dCdq, dCdv, J = co["dCdq"], co["dCdv"], co["J"]
+        dgdq = co["dgdq"]
+        kin = (contacts.frame_ids, co["task"], co["dtask"]) if fold else None
+    else:
+        out = ct.fused_stage_derivatives(model, contacts, q, v, a, f_eff,
+                                         fric, p_ref, R_ref, with_task=fold)
+        ((tau, C_raw, g_cone, dgdf), (dIDdq, dIDdv, M),
+         (dCdq, dCdv, J), dgdq) = out[:4]
+        kin = (contacts.frame_ids,) + out[4] if fold else None
     ID_res = tau - Sact.T @ u
     if model.generalized_momentum_bias is not None:
         ID_res = ID_res - model.generalized_momentum_bias
@@ -93,10 +107,25 @@ def stage_pre(model, contacts, costs, limits, t, dt, barrier,
     dCdv = dCdv * rowmask.unsqueeze(-1)
     J = J * rowmask.unsqueeze(-1)
 
-    quad = cost_base.quadratize_stage(costs, model, nf, q, v, a, u, f, t,
-                                      dt)
-    c, lq_c, lv_c, la_c, lu_c, lf_c = (quad.cost, quad.lq, quad.lv, quad.la,
-                                       quad.lu, quad.lf)
+    if chain_out is not None and "cq_lq" in chain_out:
+        # the kernel quadratized the gait stack; only the diagonal v/a/u
+        # Hessians are assembled here
+        cfg = costs[0]
+        c = chain_out["cq_cost"][0]
+        lq_c, lv_c, la_c, lu_c = (chain_out["cq_lq"], chain_out["cq_lv"],
+                                  chain_out["cq_la"], chain_out["cq_lu"])
+        lf_c = torch.zeros(nf, dtype=dtype, device=dev)
+        Wq, Wv, Wa, Wu = (chain_out["cq_Wq"], torch.diag(dt * cfg.v_weight),
+                          torch.diag(dt * cfg.a_weight),
+                          torch.diag(dt * cfg.u_weight))
+        Wf = torch.zeros((nf, nf), dtype=dtype, device=dev)
+    else:
+        quad = cost_base.quadratize_stage(costs, model, nf, q, v, a, u, f,
+                                          t, dt, kin=kin)
+        c, lq_c, lv_c, la_c, lu_c, lf_c = (quad.cost, quad.lq, quad.lv,
+                                           quad.la, quad.lu, quad.lf)
+        Wq, Wv, Wa, Wu, Wf = (quad.Qqq, quad.Qvv, quad.Qaa, quad.Quu,
+                              quad.Qff)
 
     e_lim = jl.constraint_values(model, limits, q, v, u, a)
     Hq_d, Hv_d, Hu_d, Ha_d, gq_cd, gv_cd, gu_cd, ga_cd = jl.condense(
@@ -109,7 +138,15 @@ def stage_pre(model, contacts, costs, limits, t, dt, barrier,
     cone_gq = dgdq.T @ zr
     cone_gf = dgdf.T @ zr
 
-    Aqq, Aqv, xres_q = se.linearize(model, q, v, dt, q_n)
+    if chain_out is not None and "se_xres" in chain_out:
+        # the kernel's Lie state-equation blocks: only the 6x6 base
+        # blocks differ from the Euclidean form
+        eye = torch.eye(nv, dtype=dtype, device=dev)
+        Aqq = _set_base_block(eye, chain_out["se_Aqq6"])
+        Aqv = _set_base_block(dt * eye, dt * chain_out["se_J1binv"])
+        xres_q = chain_out["se_xres"]
+    else:
+        Aqq, Aqv, xres_q = se.linearize(model, q, v, dt, q_n)
     Fv_res = v + dt * a - v_n
 
     Tw1 = torch.cat([dIDdq, dIDdv, -Sact.T], dim=-1)
@@ -150,7 +187,7 @@ def stage_pre(model, contacts, costs, limits, t, dt, barrier,
         # [[M, J^T], [J, -D]]: 1 on inactive rows, inv_damping on active)
         M=M, J=J, inactive=1.0 - (1.0 - contacts.inv_damping) * rowmask,
         Tw1=Tw1, Tw2=Tw2, r1=ID_res, e2=e2,
-        Wq=quad.Qqq, Wv=quad.Qvv, Wu=quad.Quu, Wa=quad.Qaa, Wf=quad.Qff,
+        Wq=Wq, Wv=Wv, Wu=Wu, Wa=Wa, Wf=Wf,
         Hq_d=Hq_d, Hv_d=Hv_d, Hu_d=Hu_d, Ha_d=Ha_d,
         dgdq=dgdq, dgdf=dgdf, d_cone=d_cone, gw=gw, gy=gy,
         Aqq=Aqq, Aqv=Aqv, xres_q=xres_q, Fv_res=Fv_res,
@@ -161,6 +198,11 @@ def stage_pre(model, contacts, costs, limits, t, dt, barrier,
         aux_lq_full=lq_full, aux_lv_full=lv_full, aux_la_full=la_full,
         aux_kkt_sq=kkt_sq, aux_kkt_rest=kkt_rest, aux_cost=c,
         aux_barrier_cost=barrier_cost, aux_prim=prim, aux_dual=dual)
+
+
+def _set_base_block(A, blk):
+    """A (n, n) with its top-left 6x6 block replaced by blk."""
+    return torch.cat([torch.cat([blk, A[:6, 6:]], dim=-1), A[6:]], dim=-2)
 
 
 def _diag(x):

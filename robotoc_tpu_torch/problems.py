@@ -4,6 +4,13 @@
 tests/golden/anymal_standing_ocp.npz pins: four point contacts with
 5-facet friction cones, joint limits and a configuration cost, all feet
 in stance, T = 0.5, no impact slots.
+
+`anymal_trot` builds the mid-gait ANYmal trot MPC problem (the JAX
+package's flagship, __graft_entry__._flagship): MPCTrot at t = 0.35 with
+one lift and one touchdown in the horizon, impact slots, the gait cost
+stack, and an OCPSolver with switching constraints. `fleet` broadcasts a
+warm start to B scenarios whose initial configurations are moved in the
+tangent space by seeded noise.
 """
 from __future__ import annotations
 
@@ -19,6 +26,7 @@ from .models import robot as rm
 from .models.contacts import ContactModel, make_contacts
 from .planner.contact_sequence import (ContactSchedule, GridData,
                                        discretize)
+from .solver import ocp_solver as OS
 
 FEET = ("LF_FOOT", "LH_FOOT", "RF_FOOT", "RH_FOOT")
 Q_STAND = (0, 0, 0.4792, 0, 0, 0, 1, -0.1, 0.7, -1.0, -0.1, -0.7, 1.0, 0.1,
@@ -59,3 +67,56 @@ def anymal_standing(N: int = 20, T: float = 0.5, dtype=torch.float64,
     grid = discretize(sched, 0.0, T, N, dtype=dtype, device=m.device)
     return Problem(model=m, contacts=contacts, cost=cost, limits=lim,
                    grid=grid, q0=q0, v0=torch.zeros(m.nv, **kw), T=T, N=N)
+
+
+@dataclasses.dataclass
+class TrotProblem:
+    model: rm.RobotModel
+    mpc: object                  # mpc.mpc_trot.MPCTrot
+    solver: OS.OCPSolver
+    grid: GridData
+    costs: tuple
+    q0: torch.Tensor
+    v0: torch.Tensor
+    T: float
+    N: int
+
+
+def anymal_trot(N: int = 20, T: float = 0.5, dtype=torch.float64,
+                device=None, t0: float = 0.35,
+                options: OS.SolverOptions = OS.SolverOptions(
+                    switching_constraints=True)) -> TrotProblem:
+    """Mid-gait ANYmal trot: step length 0.15 m, swing height 0.1, swing
+    time 0.25, no stance phase, first swing at 0.5 s, planned at t0."""
+    from .mpc.mpc_trot import MPCTrot
+    m = load_robot("anymal", dtype=dtype, device=device)
+    mpc = MPCTrot(m, T=T, N=N, options=options)
+    planner = mpc.make_planner()
+    planner.set_gait_pattern(np.array([0.15, 0, 0]), 0.0)
+    mpc.set_gait_pattern(planner, swing_height=0.1, swing_time=0.25,
+                         stance_time=0.0, swing_start_time=0.5)
+    kw = dict(dtype=dtype, device=m.device)
+    q0 = torch.tensor(Q_STAND, **kw)
+    v0 = torch.zeros(m.nv, **kw)
+    mpc.planner.init(np.asarray(Q_STAND, dtype=float))
+    mpc.config_cost = dataclasses.replace(mpc.config_cost, q_ref=q0)
+    grid, costs = mpc._build_schedule_and_costs(t0, q0, v0)
+    solver = OS.OCPSolver(m, mpc.contacts, costs, mpc.limits, T=T, N=N,
+                          options=options, n_reserved_events=mpc.n_reserved)
+    return TrotProblem(model=m, mpc=mpc, solver=solver, grid=grid,
+                       costs=costs, q0=q0, v0=v0, T=T, N=N)
+
+
+def fleet(solver, grid, q0, v0, B: int, seed: int = 0,
+          scale: float = 0.03):
+    """(warm start (B, S, ...), q0s (B, nq), v0s (B, nv)): the solver's warm
+    start at (q0, v0) broadcast to B scenarios whose initial configurations
+    are moved by scale * N(0, 1) in the tangent space (numpy seed)."""
+    m = solver.model
+    sol = solver.init_solution(grid, q0, v0).map(
+        lambda x: x.expand((B,) + x.shape).contiguous())
+    rng = np.random.default_rng(seed)
+    kw = dict(dtype=m.dtype, device=m.device)
+    dq = torch.as_tensor(scale * rng.standard_normal((B, m.nv)), **kw)
+    q0s = rm.integrate(m, q0.expand(B, m.nq), dq)
+    return sol, q0s, v0.expand(B, m.nv).contiguous()

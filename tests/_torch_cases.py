@@ -36,7 +36,7 @@ def fields(obj):
 
 def np_tree(x):
     """JAX pytree -> the same structure with numpy leaves."""
-    return jax.tree.map(np.asarray, x)
+    return jax.tree.map(np.array, x)
 
 
 def jax_problem(N=4, dtype=jnp.float64):
@@ -104,3 +104,98 @@ def perturbed_solution(jsol, seed, scale=0.05):
 def assert_close(actual, desired, tol, name=""):
     np.testing.assert_allclose(np.asarray(actual), np.asarray(desired),
                                rtol=tol, atol=tol, err_msg=name)
+
+
+def deep_fields(obj):
+    """fields() with dataclass-valued fields (references, nested costs)
+    turned into field dicts too."""
+    out = fields(obj)
+    for f in dataclasses.fields(obj):
+        v = getattr(obj, f.name)
+        if dataclasses.is_dataclass(v):
+            out[f.name] = deep_fields(v)
+    return out
+
+
+def jax_trot(N=10, dtype=jnp.float64, t0=0.35):
+    """The mid-gait ANYmal trot (the JAX package's flagship problem at
+    horizon N), JAX side: model, MPCTrot, grid and cost stack."""
+    from robotoc_tpu.models import load_robot
+    from robotoc_tpu.mpc.mpc_trot import MPCTrot
+    m = load_robot("anymal", dtype=dtype)
+    mpc = MPCTrot(m, T=0.5, N=N)
+    planner = mpc.make_planner()
+    planner.set_gait_pattern(np.array([0.15, 0, 0]), 0.0)
+    mpc.set_gait_pattern(planner, swing_height=0.1, swing_time=0.25,
+                         stance_time=0.0, swing_start_time=0.5)
+    q0 = jnp.asarray(Q_STAND, dtype)
+    v0 = jnp.zeros(18, dtype)
+    mpc.planner.init(q0)
+    mpc.config_cost = mpc.config_cost.replace(q_ref=q0)
+    grid, costs = mpc._build_schedule_and_costs(t0, q0, v0)
+    return dict(model=m, mpc=mpc, contacts=mpc.contacts, limits=mpc.limits,
+                grid=grid, costs=costs, q0=q0, v0=v0)
+
+
+def trot_to_torch(jt, dtype=torch.float64):
+    """The JAX trot problem's objects converted to the port's (CPU)."""
+    kw = dict(dtype=dtype, device="cpu")
+    cfg, br, task = jt["costs"]
+    return dict(
+        model=convert.robot_model(fields(jt["model"]), **kw),
+        contacts=convert.contact_model(fields(jt["contacts"]), **kw),
+        limits=convert.joint_limits(fields(jt["limits"]), **kw),
+        grid=convert.grid_data(fields(jt["grid"]), **kw),
+        costs=(convert.config_cost(fields(cfg), **kw),
+               convert.base_rotation_cost(deep_fields(br), **kw),
+               convert.multi_frame_task_cost(deep_fields(task), **kw)),
+        q0=torch.as_tensor(np.array(jt["q0"]), dtype=dtype),
+        v0=torch.as_tensor(np.array(jt["v0"]), dtype=dtype),
+        n_imp=jt["mpc"].n_reserved)
+
+
+def trot_iterate(tp, seed, scale=0.05):
+    """Numpy fields of the port's warm start on the converted trot problem,
+    moved by seeded noise (q in the tangent space, the PDIPM pairs kept
+    positive, the switching multipliers nonzero)."""
+    from robotoc_tpu_torch.models import robot as trm
+    from robotoc_tpu_torch.solver import ocp_solver as TOS
+    sol = TOS.make_initial_solution(tp["model"], tp["contacts"],
+                                    tp["limits"], 1e-3, tp["grid"],
+                                    tp["q0"], tp["v0"])
+    f = {k: np.array(v.numpy()) for k, v in vars(sol).items()}
+    rng = np.random.default_rng(seed)
+    S = f["q"].shape[0]
+    f["q"] = trm.integrate(tp["model"], torch.as_tensor(f["q"]),
+                           torch.as_tensor(scale * rng.standard_normal(
+                               (S, 18)))).numpy()
+    for name in ("v", "a", "u", "lmd", "gmm", "beta", "mu", "xi"):
+        f[name] = f[name] + scale * rng.standard_normal(f[name].shape)
+    f["f"] = f["f"] + 5.0 * rng.standard_normal(f["f"].shape)
+    for name in ("s_lim", "z_lim", "s_cone", "z_cone"):
+        f[name] = f[name] * np.exp(0.3 * rng.standard_normal(f[name].shape))
+    return f
+
+
+def anymal_states(model, n, seed):
+    """n random ANYmal states, numpy: q (moved around standing in the
+    tangent space by the port's integrate), v, a, contact forces."""
+    from robotoc_tpu_torch.models import robot as trm
+    rng = np.random.default_rng(seed)
+    dq = 0.3 * rng.standard_normal((n, 18))
+    q = trm.integrate(model, torch.as_tensor(Q_STAND, dtype=torch.float64)
+                      .expand(n, 19), torch.as_tensor(dq)).numpy()
+    return (q, rng.standard_normal((n, 18)), rng.standard_normal((n, 18)),
+            30.0 * rng.standard_normal((n, 12)))
+
+
+def close_tree(got, want, tol, name=""):
+    """Nested sequences of arrays equal to `tol` relative to each array's
+    largest magnitude (at least one)."""
+    for i, (g, w) in enumerate(zip(got, want)):
+        if isinstance(w, (tuple, list)):
+            close_tree(g, w, tol, f"{name}[{i}]")
+            continue
+        w = np.asarray(w)
+        scale = max(1.0, float(np.abs(w).max(initial=0.0)))
+        assert_close(np.asarray(g) / scale, w / scale, tol, f"{name}[{i}]")

@@ -9,13 +9,16 @@ that machine need not have, hence --noconftest):
 Each wrapper is held against its plain version on the same CUDA tensors
 in float64 (1e-10 relative to each output's max-abs), the wrappers refuse
 inputs their kernels do not take, and one Newton update of a small fleet
-on the card matches the same update on the CPU."""
+on the card matches the same update on the CPU, for the standing problem
+and for the trot (impact slots, switching rows, the chain kernel K6 with
+the cost fold)."""
 import numpy as np
 import pytest
 import torch
 
 from robotoc_tpu_torch import problems
 from robotoc_tpu_torch.models import robot as rm
+from robotoc_tpu_torch.ops import chain as chn
 from robotoc_tpu_torch.ops import condense as cd
 from robotoc_tpu_torch.riccati import backward_sweep as bs
 from robotoc_tpu_torch.solver import ocp_solver as OS
@@ -68,7 +71,7 @@ def test_condense_kernels_match_plain(dev):
 @pytest.mark.parametrize("nf", [0, 12])
 def test_bwd_kernel_matches_plain(dev, nf):
     import chip_smoke
-    args = chip_smoke.lqr_inputs(nf, torch.float64, dev)
+    args = chip_smoke.lqr_inputs(nf, torch.float64, dev, chip_smoke.N)
     _close(bs.bwd(*args), bs.bwd_plain(*args))
 
 
@@ -94,6 +97,38 @@ def test_update_on_card_matches_cpu(dev):
     (nc, kc), (nh, kh) = results
     assert torch.allclose(kc.cpu(), kh, rtol=1e-10)
     for name in ("q", "v", "a", "u", "f", "lmd", "gmm"):
+        want = getattr(nh, name)
+        err = float((getattr(nc, name).cpu() - want).abs().max())
+        assert err <= 1e-8 * max(1.0, float(want.abs().max())), name
+
+
+@pytest.mark.parametrize("with_cost", [False, True])
+def test_chain_kernel_matches_plain(dev, with_cost):
+    import chip_smoke
+    p = problems.anymal_trot(N=4, device=dev)
+    sol, q0s, v0s = problems.fleet(p.solver, p.grid, p.q0, p.v0, 2)
+    sb, gb, _, _, _ = OS._fleet(chip_smoke.perturbed(p.model, sol), p.grid,
+                                q0s, v0s)
+    args, cost = chip_smoke.chain_args(p.model, p.mpc.contacts, p.costs, sb,
+                                       gb, with_cost)
+    chn.chain.launches = 0
+    got = chn.chain(p.model, p.mpc.contacts, *args, None, *cost)
+    want = chn.chain_plain(p.model, p.mpc.contacts, *args, None, *cost)
+    assert chn.chain.launches == 1
+    names = chn._OUTS + (chn._COST_OUTS if with_cost else ())
+    _close([got[n] for n in names], [want[n] for n in names])
+
+
+def test_trot_update_on_card_matches_cpu(dev):
+    results = []
+    for d in (dev, torch.device("cpu")):
+        p = problems.anymal_trot(N=4, device=d)
+        sol, q0s, v0s = problems.fleet(p.solver, p.grid, p.q0, p.v0, 2)
+        new, kkt, _, _ = p.solver.update(p.grid, q0s, v0s, sol)
+        results.append((new, kkt))
+    (nc, kc), (nh, kh) = results
+    assert torch.allclose(kc.cpu(), kh, rtol=1e-10)
+    for name in ("q", "v", "a", "u", "f", "lmd", "gmm", "xi"):
         want = getattr(nh, name)
         err = float((getattr(nc, name).cpu() - want).abs().max())
         assert err <= 1e-8 * max(1.0, float(want.abs().max())), name

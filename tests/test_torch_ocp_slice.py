@@ -135,10 +135,7 @@ def test_single_scenario_equals_fleet_member():
 def test_unported_options_raise():
     p = problems.anymal_standing(N=N, device="cpu")
     args = (p.model, p.contacts, (p.cost,), p.limits, p.T, p.N)
-    with pytest.raises(NotImplementedError):
-        TOS.OCPSolver(*args, n_reserved_events=1)
-    for flag in ("parallel_riccati", "enable_line_search",
-                 "switching_constraints"):
+    for flag in ("parallel_riccati", "enable_line_search"):
         with pytest.raises(NotImplementedError):
             TOS.OCPSolver(*args, options=TOS.SolverOptions(**{flag: True}))
     with pytest.raises(NotImplementedError):
