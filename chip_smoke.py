@@ -12,7 +12,8 @@ Phases, each of which raises (and so exits non-zero) on failure:
      trot fleet; the Riccati backward sweep K5 without switching rows
      (standing shapes) and with them (trot shapes); the chain kernel K6
      without the cost fold at the standing shapes and with it at the trot
-     shapes. Time kernel, plain version and library call (float32);
+     shapes. Time kernel, plain version and library call (float32); count
+     K6's operations on the host (csrc/chain_flops.cpp, g++) for its bound;
   3. "slice": the ANYmal standing contact OCP (T 0.5, N 20), B = 128
      scenarios with perturbed initial configurations, float32, two updates
      per MPC step through OCPSolver.update with the kernels (K6 without the
@@ -36,6 +37,7 @@ import os
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
@@ -130,7 +132,8 @@ def nbytes(*ts):
 
 
 # ---------------------------------------------------------------------------
-# operation counts per stage (K1-K3, K6) or per step (K5), from the dims
+# operation counts per stage (K1-K3) or per step (K5), from the dims; K6's
+# is counted on this run's inputs (ops/chain.op_count)
 # ---------------------------------------------------------------------------
 
 def flops_k1(nv, nf, w):
@@ -161,22 +164,6 @@ def flops_k5_step(nx, nu, nf):
         f += (2 * nu * nu * nf + 2 * nf * nu * nx + 2 * nf * nu * nf
               + 2 * nf ** 3 + 2 * nf * nf * nx + 2 * nu * nf * nx
               + 2 * nf * nx * nx)
-    return f
-
-
-def flops_k6(nv, nj, nc, with_cost):
-    """Forward-mode arithmetic per stage, counted from csrc/chain_stage.cuh
-    (a dual multiply is 4 flops, a dual add 2): per tangent column (3 nv of
-    them) and joint about 650 flops forward, 420 for the net force and 220
-    for the backward sum; per column 3,400 for the contact, cone, task and
-    CoM rows; with the cost fold, per q-column 700 for the residual
-    Jacobians, per state-equation column 500, and the Gauss-Newton sums
-    (nv^2 entries over nv + 3 + 3 nc + 3 rows)."""
-    ncol = 3 * nv
-    f = ncol * (nj * (650 + 420 + 220) + 3400 * nc // 4)
-    if with_cost:
-        nr = nv + 3 + 3 * nc + 3
-        f += nv * 700 + 12 * 500 + 3 * nv * nv * nr + 2 * 6 ** 3
     return f
 
 
@@ -273,6 +260,7 @@ def lqr_inputs(nf, dtype, dev, Nh, seed=1, nx=36, nu=12):
 def phase_build():
     t0 = time.perf_counter()
     built = kernels.build()
+    kernels.host_library("chain_flops")     # K6's operation count (g++)
     secs = time.perf_counter() - t0
     for name, (_, log) in built.items():
         for line in log.splitlines():
@@ -326,6 +314,20 @@ def phase_kernels(dev):
                                        q_s, v_s)
     Nt = grid64.dt.shape[1]
     recs, extra = {}, {}
+    # K6's operation counts, on the host beside the card's work (ctypes
+    # releases the GIL): (value, tangent) operations over all stages
+    # and, on the main path, the arithmetic the kernel as written does
+    kernels.host_library("chain_flops")
+    pool = ThreadPoolExecutor(3)
+    k6_ops = {}
+    for wc, pp, cts, costs, sb, gb in (
+            (False, ps, ps.contacts, (ps.cost,), sol_s, grid_s),
+            (True, p64, p64.mpc.contacts, p64.costs, sol64, grid64)):
+        args, cost = chain_args(pp.model, cts, costs, sb, gb, wc)
+        k6_ops[wc] = pool.submit(chn.op_count, pp.model, cts, *args, *cost)
+    k6_written = pool.submit(chn.op_count, p64.model, p64.mpc.contacts,
+                             *args, *cost, as_written=True)
+    pool.shutdown(wait=False)
     for dtype in (torch.float64, torch.float32):
         x = {k: v.to(dtype) for k, v in x64.items()}
         k1_in = [x[n] for n in ("M", "J", "inactive", "Tw1", "Tw2", "r1",
@@ -414,7 +416,15 @@ def phase_kernels(dev):
                 extra["K5 nf=0 (standing, N=20)"] = rec
         for wc in (True, False):
             model, contacts, args, cost, got, err = k6[wc]
-            S6 = args[0].shape[0]
+            n_val, n_tan = k6_ops[wc].result()
+            print(f"  K6 cost={int(wc)}: {args[0].shape[0]} stages, "
+                  f"{n_val} value + {n_tan} tangent operations "
+                  "(csrc/chain_flops.cpp)")
+            if wc:
+                w_val, w_tan = k6_written.result()
+                ratio = (w_val + w_tan) / (n_val + n_tan)
+                print(f"  K6 cost=1 as written: {w_val} value + {w_tan} "
+                      f"tangent operations, {ratio:.1f} x the function's")
             rec = _record(
                 "K6 chain", "robotoc_tpu_torch/csrc/chain.cu",
                 "robotoc_tpu/ops/pallas_chain.py:1110", err,
@@ -423,7 +433,7 @@ def phase_kernels(dev):
                 cuda_ms(lambda: chn.chain_plain(model, contacts, *args, None,
                                                 *cost), reps=3, warmup=1),
                 bound(nbytes(*args, *cost) + nbytes(*got.values()),
-                      S6 * flops_k6(18, 13, 4, wc), dtype), None)
+                      n_val + n_tan, dtype), None)
             if wc:
                 recs["K6"] = rec
             else:

@@ -6,22 +6,31 @@
 // Design: one thread block per stage (the fleet's B x S stages flattened,
 // as the Pallas entry's custom-vmap rule did), 64 threads of which the
 // first 3 nv = 54 each own one tangent column (dq | dv | da) and carry it
-// through the level-ordered forward sweep, the contact, cone and task
-// rows and the RNEA backward sweep (csrc/chain_stage.cuh). Values are
-// computed once per level and kept in shared memory beside the columns'
-// tangent state, 50 KB in f32 and 100 KB in f64 with the cost fold, above
-// 48 KB by cudaFuncSetAttribute as for K5. The Pallas kernel's 128-lane
-// tiling and its pre-broadcast constants are gone; the model constants
-// and topology are two small device arrays every block reads.
+// as a value/tangent pair through the level-ordered forward sweep, the
+// contact, cone and task rows and the RNEA backward sweep
+// (csrc/chain_stage.cuh). Every column recomputes the values beside its
+// tangent; column 0 alone stores them in shared memory, where the other
+// columns read their parents' values. The columns' tangent state lives
+// there too, 50 KB in f32 and 100 KB in f64 with the cost fold, above
+// 48 KB by cudaFuncSetAttribute as for K5. Structural zeros (a
+// placement's dv/da tangent, a velocity's da tangent) are not stored, but
+// the dv/da columns still multiply their zero placement tangents through.
+// The Pallas kernel's 128-lane tiling and its pre-broadcast constants are
+// gone; the model constants and topology are two small device arrays
+// every block reads.
 //
 // Bound on the card: per stage the kernel reads about 0.2 K values
 // (configuration, velocity, acceleration, forces, references) and writes
 // about 3.0 K (the 18 x 18 and 12 x 18 Jacobian blocks dominate), some
-// 13 KB in f32, about 40 MB for 3072 stages: 12 us at 3.35 TB/s. The arithmetic
-// is a few hundred kFLOP per stage, so bytes bound it. The first design is
-// latency-bound instead: a stage's 54 columns fill under two warps and
-// the levels are barriers; making it fast (several stages per block,
-// registers for the tangent state) is later work.
+// 13 KB in f32, about 40 MB for 3072 stages: 12 us at 3.35 TB/s. The
+// function needs about 50 K operations per stage (values once, structural
+// zeros skipped; counted by csrc/chain_flops.cpp), 2.3 us for 3072 stages
+// at the f32 peak, so bytes bound it. The kernel as written does about
+// 23 times that arithmetic (the recomputed values and the zero tangents),
+// and it is latency-bound besides: a stage's 54 columns fill under two
+// warps and the levels are barriers. Making it fast (values once per
+// level, the zero tangents skipped, several stages per block) is later
+// work.
 //
 // C interface: rtt_chain(dtype, with_cost, nv, nj, nc, consts, topo, ins,
 // outs, S, stream); ins/outs are host arrays of device pointers in the

@@ -10,15 +10,18 @@
 // Design: every tangent column is owned by one "thread" (tid, tid + nt,
 // ...) and propagated in forward mode with a value/tangent pair (Dual)
 // through the same formulas the values take, so a value and its
-// derivative never come from two codes. Values are shared: the owner of
-// column 0 stores them in the workspace, the other columns read the
-// parents' values from there. Tangent state is private to its column and
-// lives in the workspace at [joint][component][column], so neighbouring
-// threads touch neighbouring words. Structural zeros are skipped: a
-// placement has no dv/da tangent (its tangents are stored for the NV
-// q-columns only) and a velocity has no da tangent. Joints are processed
-// level by level (the static levels of robot.chain_levels) with a block
-// barrier between levels: forward from the root, backward for the RNEA
+// derivative never come from two codes. Each column recomputes the values
+// it needs along with its tangent; the owner of column 0 stores them in
+// the workspace, where the other columns read the parents' values. Tangent
+// state is private to its column and lives in the workspace at
+// [joint][component][column], so neighbouring threads touch neighbouring
+// words. Structural zeros are not stored: a placement's tangents are kept
+// for the NV q-columns only, a velocity's for the dq/dv columns only. The
+// arithmetic still runs on them: a dv/da column multiplies zero placement
+// tangents through. (csrc/chain_flops.cpp counts what the function needs,
+// values once and zeros skipped, for the roofline bound.) Joints are
+// processed level by level (the static levels of robot.chain_levels) with
+// a block barrier between levels: forward from the root, backward for the RNEA
 // force accumulation. Local joint placements are recomputed where needed
 // with closed-form seeds: dR = R hat(e), dp = R e for the free base (the
 // right perturbation of robot.integrate), dR = R hat(axis) for a revolute

@@ -9,6 +9,8 @@ imported.
 
 `host_library()` builds csrc/host_shim.cpp with g++ instead: the kernels'
 per-stage arithmetic for the CPU, used by the tests.
+`host_library("chain_flops")` builds the operation count of K6's function
+(csrc/chain_flops.cpp) the same way.
 
 `check_args`, `ptr` and `stream` are what a wrapper needs to hand CUDA
 tensors to a library function.
@@ -144,16 +146,16 @@ def library(name: str) -> ctypes.CDLL:
     return _loaded[name]
 
 
-def host_library() -> ctypes.CDLL:
-    """csrc/host_shim.cpp built with g++ (no CUDA, no torch headers)."""
-    if "host_shim" not in _loaded:
+def host_library(name: str = "host_shim") -> ctypes.CDLL:
+    """csrc/<name>.cpp built with g++ (no CUDA, no torch headers)."""
+    if name not in _loaded:
         gxx = shutil.which("g++")
         if gxx is None:
             raise RuntimeError("g++ not found")
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        target = _target("host_shim", GXX_FLAGS)
+        target = _target(name, GXX_FLAGS)
         if not target.exists():
-            proc, tmp = _start([gxx, *GXX_FLAGS, "host_shim.cpp"], target)
-            _finish(proc, tmp, target, "csrc/host_shim.cpp")
-        _loaded["host_shim"] = ctypes.CDLL(str(target))
-    return _loaded["host_shim"]
+            proc, tmp = _start([gxx, *GXX_FLAGS, f"{name}.cpp"], target)
+            _finish(proc, tmp, target, f"csrc/{name}.cpp")
+        _loaded[name] = ctypes.CDLL(str(target))
+    return _loaded[name]

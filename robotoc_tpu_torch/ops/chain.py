@@ -289,3 +289,30 @@ def chain(model, contacts, q, v, a, f_eff, fric, p_ref, R_ref=None,
 
 
 chain.launches = 0
+
+
+def op_count(model, contacts, q, v, a, f_eff, fric, p_ref, *cost_ins,
+             as_written=False):
+    """(value, tangent) operations of K6's function on these S stages:
+    values once per stage, tangents only where they are not structural
+    zeros (csrc/chain_flops.cpp, built with g++). With as_written, every
+    operation the kernel does, repeated values and zeros included. Inputs
+    as for `chain`, on any device."""
+    _check_point(contacts)
+    meta = chain_meta(model, contacts, with_cost=len(cost_ins) == N_COST_IN)
+    if (meta.nv, meta.nj, meta.nc) != KERNEL_DIMS:
+        raise ValueError(f"op_count: built for {KERNEL_DIMS}")
+    ins = [t.detach().to("cpu", torch.float64).contiguous()
+           for t in (q, v, a, f_eff, fric, p_ref) + tuple(cost_ins)]
+    consts, topo = model_tables(model, contacts, torch.float64, "cpu")
+    lib = kernels.host_library("chain_flops")
+    P = ctypes.c_void_p
+    lib.rtt_chain_flops.argtypes = [ctypes.c_int, ctypes.c_int, P,
+                                    ctypes.c_int, P, P, ctypes.c_longlong, P]
+    out = (ctypes.c_longlong * 2)()
+    lib.rtt_chain_flops(int(meta.with_cost), int(as_written),
+                        P(consts.data_ptr()), consts.numel(),
+                        P(topo.data_ptr()),
+                        (P * len(ins))(*[t.data_ptr() for t in ins]),
+                        ins[0].shape[0], out)
+    return int(out[0]), int(out[1])

@@ -84,7 +84,7 @@ class SolverOptions:
     versions). False forces the plain PyTorch versions everywhere."""
     use_chain: Optional[bool] = None
     """Stage derivatives through the chain kernel K6 (ops/chain.py) instead
-    of the per-stage jacfwd; None follows use_kernels."""
+    of the per-stage jacfwd; None follows use_kernels, True needs it."""
 
 
 class OCPSolver:
@@ -101,6 +101,9 @@ class OCPSolver:
                           and self.n_reserved_events > 0)
         self.use_chain = (options.use_kernels if options.use_chain is None
                           else bool(options.use_chain))
+        if self.use_chain and not options.use_kernels:
+            raise ValueError("use_chain runs the chain kernel K6; it needs "
+                             "use_kernels=True")
         self.model = model
         self.contacts = contacts
         self.costs = tuple(costs) if isinstance(costs, (tuple, list)) \
@@ -233,12 +236,12 @@ def _flat_slots(idx, n_stage):
 
 
 def stage_inputs(model, contacts, limits, barrier, costs, sol: Solution,
-                 grid: GridData, use_chain=False, use_kernels=True) -> dict:
+                 grid: GridData, use_chain=False) -> dict:
     """`stage_pre` of every stage slot of a fleet (leading B), vmapped over
     the flattened B*(S-1) slots: the condense inputs (ops/condense.IN_NAMES)
     and the pass-through "aux_" fields, each (B*(S-1), ...). With use_chain
     the chain kernel K6 evaluates the stage derivatives of every slot in
-    one launch first (the plain version with use_kernels=False)."""
+    one launch first (its plain version on CPU tensors)."""
     def pre_fn(*args, chain_out=None):
         return stage.stage_pre(model, contacts, costs, limits, *args,
                                chain_out=chain_out)
@@ -257,8 +260,7 @@ def stage_inputs(model, contacts, limits, barrier, costs, sol: Solution,
     rowmask = contacts.force_mask(grid.contact_mask[:, :-1])
     cost_ins = (chn.cost_fold_inputs(model, contacts, costs, grid, sol)
                 if chn.cost_fold_supported(model, costs, contacts) else ())
-    fn = chn.chain if use_kernels else chn.chain_plain
-    co = fn(model, contacts, *[_flat(x).contiguous() for x in (
+    co = chn.chain(model, contacts, *[_flat(x).contiguous() for x in (
         sol.q[:, :-1], sol.v[:, :-1], sol.a[:, :-1],
         sol.f[:, :-1] * rowmask, grid.friction[:, :-1],
         grid.p_ref[:, :-1], grid.R_ref[:, :-1])], *cost_ins)
@@ -340,13 +342,12 @@ def _switching(model, contacts, sol, grid, blocks, idx):
 
 
 def stage_pre_all(model, contacts, limits, barrier, costs, sol: Solution,
-                  grid: GridData, use_kernels=True, n_imp=0,
-                  use_chain=False) -> dict:
+                  grid: GridData, n_imp=0, use_chain=False) -> dict:
     """The pre-condensing fields of every stage slot of a fleet
     (B*(S-1), ...): `stage_inputs`, with the impact slots re-evaluated by
     the impact stage and scattered in."""
     pre = stage_inputs(model, contacts, limits, barrier, costs, sol, grid,
-                       use_chain=use_chain, use_kernels=use_kernels)
+                       use_chain=use_chain)
     if n_imp == 0:
         return pre
     idx = _impact_slots(grid, n_imp)
@@ -371,8 +372,7 @@ def _build(model, contacts, limits, barrier, costs, sol: Solution,
     B, S = sol.q.shape[0], sol.q.shape[1]
     N = S - 1
     pre = stage_pre_all(model, contacts, limits, barrier, costs, sol, grid,
-                        use_kernels=use_kernels, n_imp=n_imp,
-                        use_chain=use_chain)
+                        n_imp=n_imp, use_chain=use_chain)
     idx = _impact_slots(grid, n_imp) if n_imp > 0 else None
     kin = {k: v for k, v in pre.items() if not k.startswith("aux_")}
     ko = cd.condense(kin, use_kernels=use_kernels)

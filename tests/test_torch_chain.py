@@ -169,3 +169,42 @@ def test_chain_refuses_surface_contacts(case):
     assert not chn.chain_supported(tp["model"], surf)
     with pytest.raises(NotImplementedError):
         chn.chain(tp["model"], surf, *args)
+
+
+@pytest.mark.skipif(shutil.which("g++") is None, reason="g++ is not "
+                    "installed")
+def test_op_count_charges_values_once(case):
+    """K6's operation count (csrc/chain_flops.cpp, the roofline bound's
+    numerator): additive over stages, larger with the cost fold, below
+    what charging every tangent column the stage's value arithmetic would
+    give, and below the count of the kernel's own arithmetic."""
+    tp = case["tp"]
+    ins = [torch.as_tensor(x) for x in case["ins"]]
+    counts = {}
+    for with_cost in (False, True):
+        cost = case["cost_t"] if with_cost else ()
+        val, tan = chn.op_count(tp["model"], tp["contacts"], *ins, *cost)
+        h = ins[0].shape[0] // 2
+        parts = [chn.op_count(tp["model"], tp["contacts"],
+                              *[x[sl] for x in ins + list(cost)])
+                 for sl in (slice(0, h), slice(h, None))]
+        assert (val, tan) == tuple(map(sum, zip(*parts)))
+        assert 0 < val < tan < 3 * 18 * val
+        written = chn.op_count(tp["model"], tp["contacts"], *ins, *cost,
+                               as_written=True)
+        assert written[0] >= 3 * 18 * val and written[1] > tan
+        counts[with_cost] = val + tan
+    assert counts[True] > counts[False]
+
+
+def test_use_chain_needs_the_kernels(case):
+    """use_chain runs K6 through `chain`; with the kernels switched off
+    there is no route for it, and the solver refuses the combination."""
+    tp = case["tp"]
+    with pytest.raises(ValueError):
+        TOS.OCPSolver(tp["model"], tp["contacts"], tp["costs"], tp["limits"],
+                      T=0.5, N=10, options=TOS.SolverOptions(
+                          use_kernels=False, use_chain=True))
+    assert not TOS.OCPSolver(
+        tp["model"], tp["contacts"], tp["costs"], tp["limits"], T=0.5, N=10,
+        options=TOS.SolverOptions(use_kernels=False)).use_chain
