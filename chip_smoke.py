@@ -12,8 +12,10 @@ Phases, each of which raises (and so exits non-zero) on failure:
      trot fleet; the Riccati backward sweep K5 without switching rows
      (standing shapes) and with them (trot shapes); the chain kernel K6
      without the cost fold at the standing shapes and with it at the trot
-     shapes. Time kernel, plain version and library call (float32); count
-     K6's operations on the host (csrc/chain_flops.cpp, g++) for its bound;
+     shapes; on the stage slots of the iCub walk fleet, K6's surface-contact
+     instance without and with the cost fold and the 34-row Kc. Time kernel,
+     plain version and library call (float32); count K6's operations on the
+     host (csrc/chain_flops.cpp, g++) for its bound;
   3. "slice": the ANYmal standing contact OCP (T 0.5, N 20), B = 128
      scenarios with perturbed initial configurations, float32, two updates
      per MPC step through OCPSolver.update with the kernels (K6 without the
@@ -29,7 +31,16 @@ Phases, each of which raises (and so exits non-zero) on failure:
   5. "golden": float64, one standing scenario, 16 updates through the
      kernels: reproduce tests/golden/anymal_standing_ocp.npz to 1e-6 with
      KKT below 1e-6;
-  6. print the kernels' JSON line, the card line and the final status line.
+  6. "walk": the iCub lower half on two surface contacts. The standing OCP
+     (N 4) in float64, 12 updates through the kernels to KKT < 1e-6; the
+     biped-walk MPC (T 0.7, N 25, 3 impact slots, switching constraints,
+     the gait cost stack folded into K6's surface instance, 34 cone rows
+     through Kc) warmed in float64 at B = 1 the way the MPC runs (standing
+     init, closed-loop updates to mid-gait t = 0.62), then B = 128 float32
+     scenarios with perturbed initial states, two updates per MPC step:
+     launch counts, finite KKT, agreement with the plain versions, time per
+     MPC step, host time by part and the device idle share;
+  7. print the kernels' JSON line, the card line and the final status line.
 """
 import dataclasses
 import json
@@ -42,7 +53,7 @@ from concurrent.futures import ThreadPoolExecutor
 import numpy as np
 import torch
 
-from robotoc_tpu_torch import kernels, problems
+from robotoc_tpu_torch import convert, kernels, problems
 from robotoc_tpu_torch.models import robot as rm
 from robotoc_tpu_torch.ops import chain as chn
 from robotoc_tpu_torch.ops import condense as cd
@@ -57,7 +68,10 @@ HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {torch.float32: 67e12, torch.float64: 34e12}
 # kernel vs plain version, relative to each output's largest magnitude
 TOL = {torch.float64: 1e-10, torch.float32: 1e-4}
-ALL_PHASES = ("build", "kernels", "slice", "trot", "golden")
+ALL_PHASES = ("build", "kernels", "slice", "trot", "golden", "walk")
+# the walk's closed-loop warm start: control step (the JAX package's bench
+# takes 0.005 s; 0.02 s reaches mid-gait in a quarter of the updates)
+WALK_N, WALK_T, WALK_DT = 25, 0.62, 0.02
 FIELDS = ("q", "v", "a", "u", "f", "lmd", "gmm", "beta", "mu", "s_lim",
           "z_lim", "s_cone", "z_cone")
 
@@ -199,15 +213,21 @@ def perturbed(model, sol, seed=3, scale=0.05):
         f=sol.f + r(sol.f, 5.0))
 
 
-def trot_inputs(dev, dtype=torch.float64):
-    """The trot fleet (B scenarios) at a perturbed iterate: problem,
-    fleet-shaped (sol, grid) and the flat pre-condensing fields of every
-    stage slot (the condense kernels' inputs on the main path)."""
-    p = problems.anymal_trot(N=N, dtype=dtype, device=dev)
+def trot_inputs(dev, dtype=torch.float64, make=problems.anymal_trot):
+    """The trot fleet (B scenarios) at a perturbed iterate: problem and
+    fleet-shaped (sol, grid). `make` builds another gait problem the same
+    way (the walk)."""
+    p = make(dtype=dtype, device=dev)
     sol, q0s, v0s = problems.fleet(p.solver, p.grid, p.q0, p.v0, B)
     sol_b, grid_b, _, _, _ = OS._fleet(perturbed(p.model, sol), p.grid, q0s,
                                        v0s)
     return p, sol_b, grid_b
+
+
+def walk_problem(dtype=torch.float64, device=None):
+    """The iCub walk at full width, planned mid-gait from standing."""
+    return problems.icub_walk(N=WALK_N, dtype=dtype, device=device,
+                              t0=WALK_T)
 
 
 def chain_args(model, contacts, costs, sol_b, grid_b, with_cost):
@@ -218,7 +238,7 @@ def chain_args(model, contacts, costs, sol_b, grid_b, with_cost):
     args = [fl(x).contiguous() for x in (
         sol_b.q[:, :-1], sol_b.v[:, :-1], sol_b.a[:, :-1],
         sol_b.f[:, :-1] * rowmask, grid_b.friction[:, :-1],
-        grid_b.p_ref[:, :-1])]
+        grid_b.p_ref[:, :-1], grid_b.R_ref[:, :-1])]
     cost = (list(chn.cost_fold_inputs(model, contacts, costs, grid_b,
                                       sol_b)) if with_cost else [])
     return args, cost
@@ -299,10 +319,23 @@ def _record(name, source, replaces, err, ms, plain_ms, b, library_ms):
                 bound_ms=b[0], bound_by=b[1], library_ms=library_ms)
 
 
+def _op_counts(pool, model, contacts, args, cost, as_written=False,
+               chunk=256):
+    """K6's operation count (ops/chain.op_count) of these stages, in chunks
+    on the host thread pool (ctypes releases the GIL; the count adds over
+    stages). Returns a function that waits for (value, tangent)."""
+    ins = [x.cpu() for x in list(args) + list(cost)]
+    parts = [pool.submit(chn.op_count, model, contacts,
+                         *[x[i:i + chunk] for x in ins],
+                         as_written=as_written)
+             for i in range(0, ins[0].shape[0], chunk)]
+    return lambda: tuple(map(sum, zip(*[f.result() for f in parts])))
+
+
 def phase_kernels(dev):
     """Every kernel against its plain version; times at float32, the main
-    path's type, at the trot shapes. Returns the per-kernel records
-    (launches filled later)."""
+    paths' type, at the trot's and the walk's shapes. Returns the
+    per-kernel records (launches filled later)."""
     p64, sol64, grid64 = trot_inputs(dev)
     pre64 = OS.stage_pre_all(p64.model, p64.mpc.contacts, p64.mpc.limits,
                              1e-3, p64.costs, sol64, grid64,
@@ -312,21 +345,36 @@ def phase_kernels(dev):
     _, (sol_s, q_s, v_s) = standing_fleet(ps, B)
     sol_s, grid_s, _, _, _ = OS._fleet(perturbed(ps.model, sol_s), ps.grid,
                                        q_s, v_s)
+    pw, solw, gridw = trot_inputs(dev, make=walk_problem)
+    prew = OS.stage_pre_all(pw.model, pw.mpc.contacts, pw.mpc.limits, 1e-3,
+                            pw.costs, solw, gridw, n_imp=pw.mpc.n_reserved,
+                            use_chain=False)
+    xw = [prew[k].contiguous() for k in ("dgdq", "dgdf", "d_cone")]
     Nt = grid64.dt.shape[1]
     recs, extra = {}, {}
-    # K6's operation counts, on the host beside the card's work (ctypes
-    # releases the GIL): (value, tangent) operations over all stages
-    # and, on the main path, the arithmetic the kernel as written does
+    # K6's cases: point contacts without the cost fold (standing) and with
+    # it (trot); surface contacts without it (the biped standing stack)
+    # and with it (walk), both on the walk fleet's stage slots
+    k6_cases = {
+        "point": (ps.model, ps.contacts, (ps.cost,), sol_s, grid_s, False),
+        "point fold": (p64.model, p64.mpc.contacts, p64.costs, sol64,
+                       grid64, True),
+        "surface": (pw.model, pw.mpc.contacts, pw.costs, solw, gridw,
+                    False),
+        "surface fold": (pw.model, pw.mpc.contacts, pw.costs, solw, gridw,
+                         True)}
+    # K6's operation counts, on the host beside the card's work: (value,
+    # tangent) operations over all stages and, on the trot, the arithmetic
+    # the kernel as written does
     kernels.host_library("chain_flops")
-    pool = ThreadPoolExecutor(3)
+    pool = ThreadPoolExecutor(6)
     k6_ops = {}
-    for wc, pp, cts, costs, sb, gb in (
-            (False, ps, ps.contacts, (ps.cost,), sol_s, grid_s),
-            (True, p64, p64.mpc.contacts, p64.costs, sol64, grid64)):
-        args, cost = chain_args(pp.model, cts, costs, sb, gb, wc)
-        k6_ops[wc] = pool.submit(chn.op_count, pp.model, cts, *args, *cost)
-    k6_written = pool.submit(chn.op_count, p64.model, p64.mpc.contacts,
-                             *args, *cost, as_written=True)
+    for key, (mo, cts, costs, sb, gb, wc) in k6_cases.items():
+        args, cost = chain_args(mo, cts, costs, sb, gb, wc)
+        k6_ops[key] = _op_counts(pool, mo, cts, args, cost)
+        if key == "point fold":
+            k6_written = _op_counts(pool, mo, cts, args, cost,
+                                    as_written=True)
     pool.shutdown(wait=False)
     for dtype in (torch.float64, torch.float32):
         x = {k: v.to(dtype) for k, v in x64.items()}
@@ -337,6 +385,8 @@ def phase_kernels(dev):
         kc_in = [x["dgdq"], x["dgdf"], x["d_cone"]]
         pc = cd.kc_plain(*kc_in)
         ec = _compare("Kc", cd.kc(*kc_in), pc, dtype)
+        kcw_in = [t.to(dtype) for t in xw]
+        ecw = _compare("Kc 34", cd.kc(*kcw_in), cd.kc_plain(*kcw_in), dtype)
         d = torch.diag_embed
         k2_in = [p1[3], p1[4], x["Wq"] + d(x["Hq_d"]) + pc[0],
                  x["Wv"] + d(x["Hv_d"]), x["Wu"] + d(x["Hu_d"]),
@@ -353,49 +403,50 @@ def phase_kernels(dev):
         e50 = _compare("K5 nf=0", bs.bwd(*l0), bs.bwd_plain(*l0), dtype)
         l12 = lqr_inputs(12, dtype, dev, Nt)
         e512 = _compare("K5 nf=12", bs.bwd(*l12), bs.bwd_plain(*l12), dtype)
-        # K6: without the cost fold at the standing shapes, with it at the
-        # trot shapes
         k6 = {}
-        for wc, pp, cts, costs, sb, gb in (
-                (False, ps, ps.contacts, (ps.cost,), sol_s, grid_s),
-                (True, p64, p64.mpc.contacts, p64.costs, sol64, grid64)):
-            args, cost = chain_args(pp.model, cts, costs, sb, gb, wc)
+        for key, (mo, cts, costs, sb, gb, wc) in k6_cases.items():
+            args, cost = chain_args(mo, cts, costs, sb, gb, wc)
             args = [a.to(dtype) for a in args]
             cost = [c.to(dtype).contiguous() for c in cost]
-            model = _cast_model(pp.model, dtype)
-            contacts = _cast_contacts(cts, dtype)
+            model = convert.astype(mo, dtype)
+            contacts = convert.astype(cts, dtype)
             names = chn._OUTS + (chn._COST_OUTS if wc else ())
-            got = chn.chain(model, contacts, *args, None, *cost)
-            want = chn.chain_plain(model, contacts, *args, None, *cost)
-            err = _compare(f"K6 cost={int(wc)}", [got[n] for n in names],
+            got = chn.chain(model, contacts, *args, *cost)
+            want = chn.chain_plain(model, contacts, *args, *cost)
+            err = _compare(f"K6 {key}", [got[n] for n in names],
                            [want[n] for n in names], dtype)
-            k6[wc] = (model, contacts, args, cost, got, err)
+            k6[key] = (model, contacts, args, cost, got, err)
         if dtype != torch.float32:
             continue
-        S = x["M"].shape[0]
+        S, Sw = x["M"].shape[0], xw[0].shape[0]
         nv, nf_, nu = 18, 12, 12
         w = 2 * nv + nu
         Xc = torch.cat([x["dgdq"], x["dgdf"]], dim=-1).contiguous()
+        Xw = torch.cat(kcw_in[:2], dim=-1).contiguous()
         specs = [
-            ("K1", "condense_k1", cd.k1, cd.k1_plain, k1_in, e1,
+            ("K1", "K1 condense_k1", cd.k1, cd.k1_plain, k1_in, e1,
              S * flops_k1(nv, nf_, w), None,
              "robotoc_tpu/ops/pallas_condense.py:331"),
-            ("Kc", "condense_kc", cd.kc, cd.kc_plain, kc_in, ec,
+            ("Kc", "Kc condense_kc", cd.kc, cd.kc_plain, kc_in, ec,
              S * flops_kc(nv, nf_, 20),
              lambda: torch.einsum("sr,sri,srj->sij", x["d_cone"], Xc, Xc),
              "robotoc_tpu/ops/pallas_condense.py:348"),
-            ("K2", "condense_k2", cd.k2, cd.k2_plain, k2_in, e2,
+            ("Kc34", "Kc condense_kc 34 rows", cd.kc, cd.kc_plain, kcw_in,
+             ecw, Sw * flops_kc(nv, nf_, 34),
+             lambda: torch.einsum("sr,sri,srj->sij", kcw_in[2], Xw, Xw),
+             "robotoc_tpu/ops/pallas_condense.py:348"),
+            ("K2", "K2 condense_k2", cd.k2, cd.k2_plain, k2_in, e2,
              S * flops_k2(nv, nu, nf_), None,
              "robotoc_tpu/ops/pallas_condense.py:377"),
-            ("K3", "condense_k3", cd.k3, cd.k3_plain, k3_in, e3,
+            ("K3", "K3 condense_k3", cd.k3, cd.k3_plain, k3_in, e3,
              S * flops_k3(nv, nu), None,
              "robotoc_tpu/ops/pallas_condense.py:399"),
         ]
-        for name, fn_name, kern, plain, args, err, flops, lib, repl in specs:
+        for key, name, kern, plain, args, err, flops, lib, repl in specs:
             outs = kern(*args)
-            recs[name] = _record(
-                f"{name} {fn_name}", "robotoc_tpu_torch/csrc/condense.cu",
-                repl, err, cuda_ms(lambda: kern(*args)),
+            recs[key] = _record(
+                name, "robotoc_tpu_torch/csrc/condense.cu", repl, err,
+                cuda_ms(lambda: kern(*args)),
                 cuda_ms(lambda: plain(*args), reps=5),
                 bound(nbytes(*args) + nbytes(*outs), flops, dtype),
                 cuda_ms(lib) if lib is not None else None)
@@ -414,52 +465,39 @@ def phase_kernels(dev):
                 recs["K5"] = rec
             else:
                 extra["K5 nf=0 (standing, N=20)"] = rec
-        for wc in (True, False):
-            model, contacts, args, cost, got, err = k6[wc]
-            n_val, n_tan = k6_ops[wc].result()
-            print(f"  K6 cost={int(wc)}: {args[0].shape[0]} stages, "
-                  f"{n_val} value + {n_tan} tangent operations "
-                  "(csrc/chain_flops.cpp)")
-            if wc:
-                w_val, w_tan = k6_written.result()
+        for key in ("point fold", "point", "surface fold", "surface"):
+            model, contacts, args, cost, got, err = k6[key]
+            n_val, n_tan = k6_ops[key]()
+            print(f"  K6 {key}: {args[0].shape[0]} stages, {n_val} value + "
+                  f"{n_tan} tangent operations (csrc/chain_flops.cpp)")
+            if key == "point fold":
+                w_val, w_tan = k6_written()
                 ratio = (w_val + w_tan) / (n_val + n_tan)
-                print(f"  K6 cost=1 as written: {w_val} value + {w_tan} "
+                print(f"  K6 point fold as written: {w_val} value + {w_tan} "
                       f"tangent operations, {ratio:.1f} x the function's")
             rec = _record(
-                "K6 chain", "robotoc_tpu_torch/csrc/chain.cu",
+                "K6 chain" + (" surface" if "surface" in key else ""),
+                "robotoc_tpu_torch/csrc/chain.cu",
                 "robotoc_tpu/ops/pallas_chain.py:1110", err,
-                cuda_ms(lambda: chn.chain(model, contacts, *args, None,
-                                          *cost)),
-                cuda_ms(lambda: chn.chain_plain(model, contacts, *args, None,
+                cuda_ms(lambda: chn.chain(model, contacts, *args, *cost)),
+                cuda_ms(lambda: chn.chain_plain(model, contacts, *args,
                                                 *cost), reps=3, warmup=1),
                 bound(nbytes(*args, *cost) + nbytes(*got.values()),
                       n_val + n_tan, dtype), None)
-            if wc:
+            if key == "point fold":
                 recs["K6"] = rec
-            else:
+            elif key == "surface fold":
+                recs["K6s"] = rec
+            elif key == "point":
                 extra["K6 cost=0 (standing, 2560 stages)"] = rec
+            else:
+                extra["K6 surface cost=0 (walk stages, 3584)"] = rec
     for r in list(recs.values()) + list(extra.values()):
-        print(f"  {r['name']:20s} {r['ms']:.4f} ms  plain {r['plain_ms']:.3f}"
+        print(f"  {r['name']:24s} {r['ms']:.4f} ms  plain {r['plain_ms']:.3f}"
               f" ms  bound {r['bound_ms']:.4f} ms ({r['bound_by']})"
               f"  library {r['library_ms']}")
     print("kernels_extra: " + json.dumps(extra))
     return recs
-
-
-def _cast_model(model, dtype):
-    """The model with its tensors cast to dtype (the kernels take one
-    dtype for constants and data)."""
-    return dataclasses.replace(model, **{
-        f.name: getattr(model, f.name).to(dtype)
-        for f in dataclasses.fields(model)
-        if isinstance(getattr(model, f.name), torch.Tensor)
-        and getattr(model, f.name).dtype.is_floating_point})
-
-
-def _cast_contacts(contacts, dtype):
-    return dataclasses.replace(contacts, kp=contacts.kp.to(dtype),
-                               kv=contacts.kv.to(dtype),
-                               rect=contacts.rect.to(dtype))
 
 
 COUNTERS = {"K1": cd.k1, "Kc": cd.kc, "K2": cd.k2, "K3": cd.k3,
@@ -487,27 +525,52 @@ def _agree(tag, sol0, out_k, out_p):
     """Kernels vs plain versions after one MPC step: KKT to 1e-3
     relative; each field to 1e-2 of the largest change the plain step
     made to it (float32 rounding through a stiff problem's Newton
-    directions)."""
+    directions). Returns the gates missed (empty when all hold)."""
     (sol_k, kkt_k), (sol_p, kkt_p) = out_k, out_p
+    fails = []
     for i, (a, b) in enumerate(zip(kkt_k, kkt_p)):
         rel = float(((a - b).abs() / b.abs()).max())
-        check(rel <= 1e-3, f"{tag} update {i}: KKT kernel vs plain rel "
-              f"{rel:.2e}")
+        if not rel <= 1e-3:
+            fails.append(f"update {i}: KKT kernel vs plain rel {rel:.2e}")
     worst = {}
     for name in FIELDS:
         xk, xp = getattr(sol_k, name), getattr(sol_p, name)
         step = float((xp - getattr(sol0, name)).abs().max())
         err = float((xk - xp).abs().max())
         worst[name] = err / max(step, 1e-30)
-        check(err <= 1e-2 * step + 1e-6, f"{tag} {name}: kernel vs plain "
-              f"{err:.3e} > 1e-2 x step {step:.3e}")
+        if not err <= 1e-2 * step + 1e-6:
+            fails.append(f"{name}: kernel vs plain {err:.3e} > 1e-2 x step "
+                         f"{step:.3e}")
     print(f"  {tag}: kernel vs plain, error / step: "
           + ", ".join(f"{k} {v:.1e}" for k, v in worst.items()))
+    return fails
 
 
-def _run_path(tag, mk, grid, sol0, q0s, v0s, parts_fn):
+def _agree_f64(tag, mk, grid, sol0, q0s, v0s, tol=1e-8):
+    """One MPC step through the kernels against the plain versions in
+    float64: the KKT and every field to tol relative to the field's
+    largest magnitude. Returns the worst ratios."""
+    (sol_k, kkt_k), (sol_p, kkt_p) = (_mpc_step(mk(k), grid, sol0, q0s, v0s)
+                                      for k in (True, False))
+    worst = {f"kkt{i}": float(((a - b).abs() / b.abs()).max())
+             for i, (a, b) in enumerate(zip(kkt_k, kkt_p))}
+    for name in FIELDS:
+        xk, xp = getattr(sol_k, name), getattr(sol_p, name)
+        worst[name] = float((xk - xp).abs().max()) / max(
+            float(xp.abs().max()), 1e-30)
+    print(f"  {tag} float64: kernel vs plain, error / max-abs: "
+          + ", ".join(f"{k} {v:.1e}" for k, v in worst.items()))
+    check(all(v <= tol for v in worst.values()),
+          f"{tag} float64: kernel vs plain past {tol:.0e}: {worst}")
+    return worst
+
+
+def _run_path(tag, mk, grid, sol0, q0s, v0s, parts_fn, strict=True,
+              horizon=N):
     """Drive one path: warm-up, counts reset, one MPC step through the
-    kernels, counts read; the same step on the plain versions; timings."""
+    kernels, counts read; the same step on the plain versions; timings.
+    With strict False a missed float32 agreement gate is returned in the
+    result ("f32_gates_missed") for the caller to settle."""
     s_kern, s_plain = mk(True), mk(False)
     _mpc_step(s_kern, grid, sol0, q0s, v0s)            # warm-up
     torch.cuda.synchronize()
@@ -522,7 +585,8 @@ def _run_path(tag, mk, grid, sol0, q0s, v0s, parts_fn):
         check(bool(torch.isfinite(kkt).all()), f"{tag} update {i}: KKT not "
               "finite")
     out_p = _mpc_step(s_plain, grid, sol0, q0s, v0s)
-    _agree(tag, sol0, out_k, out_p)
+    fails = _agree(tag, sol0, out_k, out_p)
+    check(not (strict and fails), f"{tag}: " + "; ".join(fails))
     print(f"  {tag}: fleet KKT after the step: max "
           f"{float(out_k[1][-1].max()):.4e}")
     step_ms = host_ms(lambda: _mpc_step(s_kern, grid, sol0, q0s, v0s))
@@ -530,14 +594,15 @@ def _run_path(tag, mk, grid, sol0, q0s, v0s, parts_fn):
                                               v0s))
     parts = parts_fn()
     dev_ms, top = device_time(lambda: s_kern.update(grid, q0s, v0s, sol0))
-    out = dict(B=B, N=N, dtype="float32", ms_per_mpc_step=step_ms,
+    out = dict(B=B, N=horizon, dtype="float32", ms_per_mpc_step=step_ms,
                mpc_updates_per_s=B / (step_ms * 1e-3),
                plain_ms_per_mpc_step=step_plain_ms,
                ms_per_update_parts=parts, device_ms_per_update=dev_ms,
                device_idle_share=(None if dev_ms is None
                                   else 1.0 - dev_ms / (step_ms / 2)),
                top_device_kernels_ms=top,
-               fleet_max_kkt=float(out_k[1][-1].max()))
+               fleet_max_kkt=float(out_k[1][-1].max()),
+               f32_gates_missed=fails)
     print(f"  {tag}: ms per MPC step (2 updates, B={B}): {step_ms:.2f} with "
           f"the kernels, {step_plain_ms:.2f} with the plain versions; "
           f"{out['mpc_updates_per_s']:.1f} MPC updates/s")
@@ -561,7 +626,7 @@ def _parts(model, contacts, limits, costs, sol_b, grid_b, q_b, v_b,
     built = OS._build(model, contacts, limits, 1e-3, costs, sol_b, grid_b,
                       q_b, v_b, **kw)
     return {
-        "chain_K6": host_ms(lambda: chn.chain(model, contacts, *args, None,
+        "chain_K6": host_ms(lambda: chn.chain(model, contacts, *args,
                                               *cost)),
         "stage_pre_all": host_ms(lambda: OS.stage_pre_all(
             model, contacts, limits, 1e-3, costs, sol_b, grid_b,
@@ -655,6 +720,85 @@ def phase_golden(dev):
           "(tolerance 1e-6)")
 
 
+def phase_walk(dev):
+    """The iCub lower half on two surface contacts: the standing OCP in
+    float64, then the biped-walk MPC warmed in float64 and driven as a
+    B-scenario float32 fleet."""
+    f64, f32 = torch.float64, torch.float32
+    # standing, float64, through the kernels (K6 surface without the cost
+    # fold, the 34-row Kc, K5 without switching rows)
+    ps = problems.icub_standing(N=4, dtype=f64, device=dev)
+    solver = OS.OCPSolver(ps.model, ps.contacts, (ps.cost,), ps.limits,
+                          T=ps.T, N=ps.N)
+    sol = solver.init_solution(ps.grid, ps.q0, ps.v0)
+    before = read_counts()
+    for _ in range(12):
+        sol, _, _, _ = solver.update(ps.grid, ps.q0, ps.v0, sol)
+    after = read_counts()
+    check(all(after[k] - before[k] == 12 for k in after),
+          f"biped standing run bypassed a kernel: {before} -> {after}")
+    kkt = float(solver.kkt_error(ps.grid, ps.q0, ps.v0, sol))
+    print(f"  biped standing: kkt {kkt:.3e} after 12 f64 updates through "
+          "the kernels (gate 1e-6)")
+    check(kkt < 1e-6, f"biped standing: kkt {kkt:.3e} >= 1e-6")
+    # the walk's iterate warmed as the MPC runs, float64, one scenario
+    t0 = time.perf_counter()
+    p = problems.icub_walk(N=WALK_N, dtype=f64, device=dev)
+    t, q, v = problems.walk_warm_start(p, WALK_T, WALK_DT)
+    mpc = p.mpc
+    kkt_w = mpc.kkt_error(t, q, v)
+    warm_s = time.perf_counter() - t0
+    print(f"  walk warm start: t = {t:.3f} s in steps of {WALK_DT} s, kkt "
+          f"{kkt_w:.3e}, {warm_s:.1f} s")
+    check(np.isfinite(kkt_w), "walk warm start: KKT not finite")
+    n_slots = mpc.grid.n_slots
+    print(f"  walk grid: {n_slots} slots, {n_slots - 1} stage slots per "
+          f"scenario, {B * (n_slots - 1)} for the fleet; impact slots "
+          f"{int(mpc.grid.is_impact.sum())}")
+    # the fleet: B scenarios whose initial states are moved by
+    # 0.0075 N(0, 1) in the tangent space (numpy seed 0)
+    rng = np.random.default_rng(0)
+    dq = rng.standard_normal((B, p.model.nv))
+
+    def fleet(dtype):
+        model = convert.astype(p.model, dtype)
+        objs = [convert.astype(x, dtype) for x in (
+            mpc.contacts, mpc.limits, mpc._costs, mpc.grid, mpc.sol)]
+        sol0 = objs[4].map(lambda x: x.expand((B,) + x.shape).contiguous())
+        q0s = rm.integrate(model, q.to(dtype).expand(B, model.nq),
+                           torch.as_tensor(0.0075 * dq, dtype=dtype,
+                                           device=dev))
+        v0s = v.to(dtype).expand(B, model.nv).contiguous()
+
+        def mk(k):
+            return OS.OCPSolver(model, objs[0], objs[2], objs[1], T=p.T,
+                                N=p.N, n_reserved_events=mpc.n_reserved,
+                                options=OS.SolverOptions(
+                                    switching_constraints=True,
+                                    use_kernels=k))
+        return model, objs, sol0, q0s, v0s, mk
+
+    model, (contacts, limits, costs, grid, _), sol0, q0s, v0s, mk = fleet(f32)
+    sol_b, grid_b, q_b, v_b, _ = OS._fleet(sol0, grid, q0s, v0s)
+    launches, out = _run_path("walk", mk, grid, sol0, q0s, v0s,
+                              lambda: _parts(
+                                  model, contacts, limits, costs, sol_b,
+                                  grid_b, q_b, v_b, mpc.n_reserved, True,
+                                  True), strict=False, horizon=WALK_N)
+    # kernels against plain versions in float64 on the same fleet; the
+    # float32 gate of the trot is reported beside it
+    _, (_, _, _, grid64, _), sol64, q64, v64, mk64 = fleet(f64)
+    out["f64_agreement"] = _agree_f64("walk", mk64, grid64, sol64, q64,
+                                      v64)
+    if out["f32_gates_missed"]:
+        print("  walk: float32 gates missed (reported, float64 gate holds): "
+              + "; ".join(out["f32_gates_missed"]))
+    out.update(warm_start_s=warm_s, warm_start_kkt=kkt_w,
+               biped_standing_kkt=kkt, stage_slots=B * (n_slots - 1))
+    print("walk: " + json.dumps(out))
+    return launches, out
+
+
 def main(phases=ALL_PHASES):
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this script "
@@ -681,6 +825,11 @@ def main(phases=ALL_PHASES):
                 recs[name]["launches"] = n
     if "golden" in phases:
         phase_golden(dev)
+    if "walk" in phases:
+        launches, _ = phase_walk(dev)
+        for key, name in (("K6s", "K6"), ("Kc34", "Kc")):
+            if key in recs:
+                recs[key]["launches"] = launches[name]
     print(f"total {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": list(recs.values())}))
     print(card)

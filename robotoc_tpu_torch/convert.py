@@ -61,6 +61,22 @@ def _build(cls, fields: dict, dtype, device, drop_none=(), nested=None):
     return cls(**kw)
 
 
+def astype(obj, dtype):
+    """`obj` with every floating tensor cast to dtype: a tensor, a tuple or
+    list of objects, or a dataclass (a model, contact model, grid, cost,
+    reference or solution), its dataclass fields cast in turn. Anything
+    else comes back as it is."""
+    if isinstance(obj, torch.Tensor):
+        return obj.to(dtype) if obj.dtype.is_floating_point else obj
+    if isinstance(obj, (tuple, list)):
+        return type(obj)(astype(x, dtype) for x in obj)
+    if dataclasses.is_dataclass(obj) and not isinstance(obj, type):
+        return dataclasses.replace(obj, **{
+            f.name: astype(getattr(obj, f.name), dtype)
+            for f in dataclasses.fields(obj) if f.init})
+    return obj
+
+
 def robot_model(fields: dict, dtype=torch.float64, device=None) -> RobotModel:
     return _build(RobotModel, fields, dtype, device)
 

@@ -121,19 +121,19 @@ struct Dual<fc::Flop> {
 }  // namespace rtt
 
 namespace {
-constexpr int NV = 18, NJ = 13, NC = 4;   // ANYmal, four point feet
+constexpr int NV = 18, NJ = 13;   // ANYmal and the iCub lower half
 
-template <bool WC>
+template <int NC, int CT, bool WC>
 void count(const double* consts, int n_consts, const int* topo,
            const double* const* ins, long long S, bool as_written,
            long long* out) {
-  using K = rtt::ChainStage<fc::Flop, NV, NJ, NC, WC>;
+  using K = rtt::ChainStage<fc::Flop, NV, NJ, NC, WC, CT>;
   using fc::Flop;
   std::vector<Flop> c(consts, consts + n_consts);
   std::vector<std::vector<Flop>> in(K::N_IN), res(K::N_OUT);
   for (int i = 0; i < K::N_OUT; ++i) res[i].resize(K::out_size(i));
   std::vector<Flop> ws(K::WS, Flop::data(0.0));
-  const Flop* in_p[20];
+  const Flop* in_p[21];
   Flop* out_p[22];
   for (long long s = 0; s < S; ++s) {
     for (int i = 0; i < K::N_IN; ++i) {
@@ -157,20 +157,35 @@ void count(const double* consts, int n_consts, const int* topo,
   out[1] = fc::g.tangent_ops;
   fc::g = fc::Counts();
 }
+
+template <int NC, int CT>
+void count_wc(int with_cost, const double* consts, int n_consts,
+              const int* topo, const double* const* ins, long long S,
+              bool as_written, long long* out) {
+  if (with_cost)
+    count<NC, CT, true>(consts, n_consts, topo, ins, S, as_written, out);
+  else
+    count<NC, CT, false>(consts, n_consts, topo, ins, S, as_written, out);
+}
 }  // namespace
 
 extern "C" {
 
-// Operations of K6's function over S stages (ANYmal: nv 18, 13 joints, 4
-// point feet), inputs in the order of ops/chain.py, float64 on the host:
+// Operations of K6's function over S stages (nv 18, 13 joints: ANYmal's 4
+// point feet, nc 4, ctype 3, or the iCub lower half's 2 soles, nc 2,
+// ctype 6), inputs in the order of ops/chain.py, float64 on the host:
 // out[0] value operations, out[1] tangent operations.
-int rtt_chain_flops(int with_cost, int as_written, const double* consts,
-                    int n_consts, const int* topo, const double* const* ins,
-                    long long S, long long* out) {
-  if (with_cost)
-    count<true>(consts, n_consts, topo, ins, S, as_written != 0, out);
+int rtt_chain_flops(int with_cost, int as_written, int nc, int ctype,
+                    const double* consts, int n_consts, const int* topo,
+                    const double* const* ins, long long S, long long* out) {
+  if (nc == 4 && ctype == rtt::kPoint)
+    count_wc<4, rtt::kPoint>(with_cost, consts, n_consts, topo, ins, S,
+                             as_written != 0, out);
+  else if (nc == 2 && ctype == rtt::kSurface)
+    count_wc<2, rtt::kSurface>(with_cost, consts, n_consts, topo, ins, S,
+                               as_written != 0, out);
   else
-    count<false>(consts, n_consts, topo, ins, S, as_written != 0, out);
+    return -1;
   return 0;
 }
 

@@ -1,11 +1,16 @@
 // Per-stage body of the kinematic-chain kernel K6 (csrc/chain.cu).
 //
-// Replaces robotoc_tpu ops/pallas_chain.py:_chain_kernel (point-contact
-// branch). For one stage it evaluates inverse dynamics (RNEA), the
-// Baumgarte contact residuals, the friction-cone rows and the task rows
-// (contact-frame positions, CoM) together with their Jacobians over the
-// 3 NV tangent columns (dq | dv | da), and, with WITH_COST, the Gauss-Newton
-// blocks of the gait cost stack and the Lie state-equation base blocks.
+// Replaces robotoc_tpu ops/pallas_chain.py:_chain_kernel. For one stage it
+// evaluates inverse dynamics (RNEA), the Baumgarte contact residuals, the
+// contact-cone rows and the task rows (contact-frame positions, CoM)
+// together with their Jacobians over the 3 NV tangent columns
+// (dq | dv | da), and, with WITH_COST, the Gauss-Newton blocks of the gait
+// cost stack and the Lie state-equation base blocks. The contact stack is
+// uniform, of type CT: point contacts (CT = 3: 3-D force, classical
+// acceleration + position residual, 5-facet pyramid on the world force,
+// pallas_chain.py:731-754) or surface contacts (CT = 6: 6-D wrench, spatial
+// acceleration + SE(3)-log residual against (R_ref, p_ref), 17-row
+// rectangular wrench cone on the local wrench, pallas_chain.py:798-839).
 //
 // Design: every tangent column is owned by one "thread" (tid, tid + nt,
 // ...) and propagated in forward mode with a value/tangent pair (Dual)
@@ -268,14 +273,14 @@ RTT_HD void se3_log_linear(const Dual<T>* w, const Dual<T>* p, Dual<T>* o) {
 
 // ---- model tables (ops/chain.model_tables) ------------------------------
 // consts: per joint [XR 9, Xp 3, axis 3, mass, com 3, Io 9], gravity 3,
-// per contact [fR 9, fp 3, kp, kv], total mass.
+// per contact [fR 9, fp 3, kp, kv, rect X, rect Y], total mass.
 // topo: parents, jtypes, q_offs, v_offs (nj each), contact parents (nc),
 // n_levels, level starts (n_levels + 1), joints in level order.
 template <typename T, int NJ, int NC>
 struct ChainModel {
   const T* c;
   const int* t;
-  static constexpr int JW = 28, CW = 14;
+  static constexpr int JW = 28, CW = 16;
   RTT_HD const T* XR(int j) const { return c + JW * j; }
   RTT_HD const T* Xp(int j) const { return c + JW * j + 9; }
   RTT_HD const T* axis(int j) const { return c + JW * j + 12; }
@@ -287,6 +292,7 @@ struct ChainModel {
   RTT_HD const T* fp(int k) const { return c + JW * NJ + 3 + CW * k + 9; }
   RTT_HD T kp(int k) const { return c[JW * NJ + 3 + CW * k + 12]; }
   RTT_HD T kv(int k) const { return c[JW * NJ + 3 + CW * k + 13]; }
+  RTT_HD const T* rect(int k) const { return c + JW * NJ + 3 + CW * k + 14; }
   RTT_HD T total_mass() const { return c[JW * NJ + 3 + CW * NC]; }
   RTT_HD int parent(int j) const { return t[j]; }
   RTT_HD int jtype(int j) const { return t[NJ + j]; }
@@ -301,15 +307,20 @@ struct ChainModel {
 };
 
 constexpr int kFree = 0, kRevolute = 1;   // models/urdf.py joint types
+constexpr int kPoint = 3, kSurface = 6;   // models/contacts.py types
 
-template <typename T, int NV, int NJ, int NC, bool WITH_COST>
+template <typename T, int NV, int NJ, int NC, bool WITH_COST, int CT>
 struct ChainStage {
+  static_assert(CT == kPoint || CT == kSurface, "contact type");
   using D = Dual<T>;
   using Model = ChainModel<T, NJ, NC>;
   static constexpr int NQ = NV + 1, NU = NV - 6, NCOL = 3 * NV;
-  static constexpr int NF = 3 * NC, NG = 5 * NC, NT = 3 * NC + 3;
+  static constexpr int GC = CT == kPoint ? 5 : 17;   // cone rows a contact
+  static constexpr int NF = CT * NC, NG = GC * NC, NT = 3 * NC + 3;
   static constexpr int NR = NV + 3 + NT;   // cost residual rows
-  static constexpr int N_IN = WITH_COST ? 20 : 6;
+  // inputs: q, v, a, f, fric, p_ref, R_ref, then the cost fold's
+  static constexpr int I_COST = 7;
+  static constexpr int N_IN = WITH_COST ? I_COST + 14 : I_COST;
   static constexpr int N_OUT = WITH_COST ? 22 : 13;
   // workspace layout (scalars)
   static constexpr int O_VAL = 0;                       // NJ x 24 values
@@ -325,7 +336,7 @@ struct ChainStage {
   static constexpr int WS = WITH_COST ? O_A6 + 36 : O_JR;
 
   static RTT_HD int in_size(int i) {
-    const int s[20] = {NQ, NV, NV, NF, NC, 3 * NC, NU, 1, NT, NT, 4,
+    const int s[21] = {NQ, NV, NV, NF, NC, 3 * NC, 9 * NC, NU, 1, NT, NT, 4,
                        NV, NV, NV, NU, NT, 3, NQ, NV, NQ};
     return s[i];
   }
@@ -455,7 +466,7 @@ struct ChainStage {
                          const T* const* in_all, T* const* out_all,
                          long long s, T* ws, int tid, int nt) {
     const Model m{consts, topo};
-    const T* in[20];
+    const T* in[21];
     T* out[22];
     for (int i = 0; i < N_IN; ++i) in[i] = in_all[i] + s * in_size(i);
     for (int i = 0; i < N_OUT; ++i) out[i] = out_all[i] + s * out_size(i);
@@ -512,6 +523,7 @@ struct ChainStage {
     // ---- contacts: Baumgarte residual, cone rows, task rows -----------
     const T* fric = in[4];
     const T* pref = in[5];
+    const T* Rref = in[6];
     T* Jr = ws + O_JR;
     for (int col = tid; col < NCOL; col += nt) {
       const Work w{ws, col};
@@ -533,32 +545,74 @@ struct ChainStage {
         matmul3(Rp, fRd, Rwc);
         matvec3(Rp, fpd, pwc);
         for (int k = 0; k < 3; ++k) pwc[k] = pwc[k] + pp[k];
-        D wxl[3];
-        cross3(vf + 3, vf, wxl);
         const D kv(m.kv(c)), kp(m.kp(c));
-        for (int k = 0; k < 3; ++k) {
-          const D C = af[k] + wxl[k] + kv * vf[k]
-                      + kp * (pwc[k] - D(pref[3 * c + k]));
-          emit(C, 3 * c + k, col, out[4], out[5], out[6], out[7]);
-        }
-        // cone rows C_m (R_w f_local)
-        const T cc = fric[c] / m_sqrt(T(2));
-        const T Cm[15] = {T(0), T(0), T(-1), T(1), T(0), -cc, T(-1), T(0),
-                          -cc, T(0), T(1), -cc, T(0), T(-1), -cc};
-        D fl[3] = {D(f[3 * c]), D(f[3 * c + 1]), D(f[3 * c + 2])}, fW[3];
-        matvec3(Rwc, fl, fW);
-        for (int r = 0; r < 5; ++r) {
-          const D g = D(Cm[3 * r]) * fW[0] + D(Cm[3 * r + 1]) * fW[1]
-                      + D(Cm[3 * r + 2]) * fW[2];
-          emit(g, 5 * c + r, col, out[8], out[9], nullptr, nullptr);
-          if (col == 0) {
-            for (int k = 0; k < NF; ++k) {
-              const int kk = k - 3 * c;
-              out[10][(5 * c + r) * NF + k] =
-                  (kk >= 0 && kk < 3)
-                      ? Cm[3 * r] * Rwc[kk].v + Cm[3 * r + 1] * Rwc[3 + kk].v
-                            + Cm[3 * r + 2] * Rwc[6 + kk].v
-                      : T(0);
+        if constexpr (CT == kPoint) {
+          D wxl[3];
+          cross3(vf + 3, vf, wxl);
+          for (int k = 0; k < 3; ++k) {
+            const D C = af[k] + wxl[k] + kv * vf[k]
+                        + kp * (pwc[k] - D(pref[3 * c + k]));
+            emit(C, 3 * c + k, col, out[4], out[5], out[6], out[7]);
+          }
+          // cone rows C_m (R_w f_local)
+          const T cc = fric[c] / m_sqrt(T(2));
+          const T Cm[15] = {T(0), T(0), T(-1), T(1), T(0), -cc, T(-1), T(0),
+                            -cc, T(0), T(1), -cc, T(0), T(-1), -cc};
+          D fl[3] = {D(f[3 * c]), D(f[3 * c + 1]), D(f[3 * c + 2])}, fW[3];
+          matvec3(Rwc, fl, fW);
+          for (int r = 0; r < 5; ++r) {
+            const D g = D(Cm[3 * r]) * fW[0] + D(Cm[3 * r + 1]) * fW[1]
+                        + D(Cm[3 * r + 2]) * fW[2];
+            emit(g, 5 * c + r, col, out[8], out[9], nullptr, nullptr);
+            if (col == 0) {
+              for (int k = 0; k < NF; ++k) {
+                const int kk = k - 3 * c;
+                out[10][(5 * c + r) * NF + k] =
+                    (kk >= 0 && kk < 3)
+                        ? Cm[3 * r] * Rwc[kk].v + Cm[3 * r + 1] * Rwc[3 + kk].v
+                              + Cm[3 * r + 2] * Rwc[6 + kk].v
+                        : T(0);
+              }
+            }
+          }
+        } else {
+          // relative placement M_ref^-1 M(q) in the reference frame, its
+          // SE(3) log [V^-1(w) p_rel; w], w = log3(R_ref^T R_w)
+          D Rr[9], dpr[3], Rrel[9], prel[3], wl[3], vl[3];
+          for (int k = 0; k < 9; ++k) Rr[k] = D(Rref[9 * c + k]);
+          for (int k = 0; k < 3; ++k) dpr[k] = pwc[k] - D(pref[3 * c + k]);
+          matTmul3(Rr, Rwc, Rrel);
+          matTvec3(Rr, dpr, prel);
+          so3_log(Rrel, wl);
+          se3_log_linear(wl, prel, vl);
+          for (int k = 0; k < 6; ++k) {
+            const D C = af[k] + kv * vf[k] + kp * (k < 3 ? vl[k] : wl[k - 3]);
+            emit(C, 6 * c + k, col, out[4], out[5], out[6], out[7]);
+          }
+          // 17-row rectangular wrench cone W(mu, X, Y) on the local wrench:
+          // no configuration dependence (zero dg/dq), dg/df = W
+          const T mu = fric[c], X = m.rect(c)[0], Y = m.rect(c)[1];
+          const T o = T(1), z = T(0), XYmu = (X + Y) * mu;
+          const T W[17 * 6] = {
+              z, z, -o, z, z, z,              -o, z, -mu, z, z, z,
+              o, z, -mu, z, z, z,             z, -o, -mu, z, z, z,
+              z, o, -mu, z, z, z,             z, z, -Y, -o, z, z,
+              z, z, -Y, o, z, z,              z, z, -X, z, -o, z,
+              z, z, -X, z, o, z,              -Y, -X, -XYmu, mu, mu, -o,
+              -Y, X, -XYmu, mu, -mu, -o,      Y, -X, -XYmu, -mu, mu, -o,
+              Y, X, -XYmu, -mu, -mu, -o,      Y, X, -XYmu, mu, mu, o,
+              Y, -X, -XYmu, mu, -mu, o,       -Y, X, -XYmu, -mu, mu, o,
+              -Y, -X, -XYmu, -mu, -mu, o};
+          for (int r = 0; r < 17; ++r) {
+            T g = T(0);
+            for (int k = 0; k < 6; ++k) g += W[6 * r + k] * f[6 * c + k];
+            emit(D(g), 17 * c + r, col, out[8], out[9], nullptr, nullptr);
+            if (col == 0) {
+              for (int k = 0; k < NF; ++k) {
+                const int kk = k - 6 * c;
+                out[10][(17 * c + r) * NF + k] =
+                    (kk >= 0 && kk < 6) ? W[6 * r + kk] : T(0);
+              }
             }
           }
         }
@@ -584,8 +638,8 @@ struct ChainStage {
       }
       for (int k = 0; k < 3; ++k) {
         const D x = com[k] * D(T(1) / m.total_mass());
-        emit(x, NF + k, col, out[11], out[12], nullptr, nullptr);
-        if (WITH_COST && col < NV) Jr[(NV + 3 + NF + k) * NV + col] = x.d;
+        emit(x, 3 * NC + k, col, out[11], out[12], nullptr, nullptr);
+        if (WITH_COST && col < NV) Jr[(NV + 3 + 3 * NC + k) * NV + col] = x.d;
       }
     }
 
@@ -612,7 +666,9 @@ struct ChainStage {
         for (int k = 0; k < 6; ++k) x[k] = Ia[k] + x[k];
         for (int c = 0; c < NC; ++c) {   // contact forces on this joint
           if (m.cpar(c) != j) continue;
-          T fc[6] = {f[3 * c], f[3 * c + 1], f[3 * c + 2], T(0), T(0), T(0)};
+          // a point force (linear part only) or a surface wrench, local
+          T fc[6] = {T(0), T(0), T(0), T(0), T(0), T(0)};
+          for (int k = 0; k < CT; ++k) fc[k] = f[CT * c + k];
           T fj[6];
           force_xfm(m.fR(c), m.fp(c), fc, fj);
           for (int k = 0; k < 6; ++k) x[k] = x[k] - D(fj[k]);
@@ -664,20 +720,21 @@ struct ChainStage {
     const T* q = in[0];
     const T* v = in[1];
     const T* a = in[2];
-    const T* u = in[6];
-    const T dt = in[7][0];
-    const T* tref = in[8];
-    const T* tact = in[9];
-    const T* brq = in[10];
-    const T* wq = in[11];
-    const T* wv = in[12];
-    const T* wa = in[13];
-    const T* wu = in[14];
-    const T* wtask = in[15];
-    const T* wbr = in[16];
-    const T* qr = in[17];
-    const T* vr = in[18];
-    const T* qn = in[19];
+    const T* const* ci = in + I_COST;
+    const T* u = ci[0];
+    const T dt = ci[1][0];
+    const T* tref = ci[2];
+    const T* tact = ci[3];
+    const T* brq = ci[4];
+    const T* wq = ci[5];
+    const T* wv = ci[6];
+    const T* wa = ci[7];
+    const T* wu = ci[8];
+    const T* wtask = ci[9];
+    const T* wbr = ci[10];
+    const T* qr = ci[11];
+    const T* vr = ci[12];
+    const T* qn = ci[13];
     T* Jr = ws + O_JR;
     T* rr = ws + O_RR;
     T* wr = ws + O_WR;

@@ -15,7 +15,11 @@
 // rows) every kernel moves 13-51 MB per launch for 2560 stages and does
 // a few hundred kFLOP per stage, so all four are bound by device-memory
 // bytes (3.35 TB/s) rather than by the FP32/FP64 rate; the design reads
-// each input once and writes each output once.
+// each input once and writes each output once. The iCub lower half has
+// the same nv, nu and nf with two 6-D surface contacts, so K1, K2 and K3
+// serve it as they are; its 2 x 17 wrench-cone rows need a second Kc
+// instance (the cone row count is Kc's template parameter): ~1.7 K values
+// per stage, ~25 MB for 3584 stages, still bytes-bound.
 //
 // C interface: rtt_condense_k*(dtype, dims..., pointers..., S, stream)
 // returns 0 on success, -1 for an unsupported dtype/dims pair, else the
@@ -144,13 +148,23 @@ int k1_typed(const void* M, const void* J, const void* inact,
                           out<T>(c0));
 }
 
-template <typename T>
+template <typename T, int NG>
 int kc_typed(const void* dgdq, const void* dgdf, const void* d, void* Hqq,
              void* Hqf, void* Hff, long long S, void* stream) {
-  using K = rtt::KcStage<T, 18, 12, 20>;
-  return launch<T, K::WS>(kc_kernel<T, 18, 12, 20>, S, stream, in<T>(dgdq),
+  using K = rtt::KcStage<T, 18, 12, NG>;
+  return launch<T, K::WS>(kc_kernel<T, 18, 12, NG>, S, stream, in<T>(dgdq),
                           in<T>(dgdf), in<T>(d), out<T>(Hqq), out<T>(Hqf),
                           out<T>(Hff));
+}
+
+template <int NG>
+int kc_dtype(int dtype, const void* dgdq, const void* dgdf, const void* d,
+             void* Hqq, void* Hqf, void* Hff, long long S, void* stream) {
+  if (dtype == 0)
+    return kc_typed<float, NG>(dgdq, dgdf, d, Hqq, Hqf, Hff, S, stream);
+  if (dtype == 1)
+    return kc_typed<double, NG>(dgdq, dgdf, d, Hqq, Hqf, Hff, S, stream);
+  return -1;
 }
 
 template <typename T>
@@ -199,14 +213,15 @@ int rtt_condense_k1(int dtype, int nv, int nf, int w, const void* M,
   return -1;
 }
 
+// nc: cone rows, 20 (four point feet) or 34 (two surface soles)
 int rtt_condense_kc(int dtype, int nv, int nf, int nc, const void* dgdq,
                     const void* dgdf, const void* d, void* Hqq, void* Hqf,
                     void* Hff, long long S, void* stream) {
-  if (nv != 18 || nf != 12 || nc != 20) return -1;
-  if (dtype == 0)
-    return kc_typed<float>(dgdq, dgdf, d, Hqq, Hqf, Hff, S, stream);
-  if (dtype == 1)
-    return kc_typed<double>(dgdq, dgdf, d, Hqq, Hqf, Hff, S, stream);
+  if (nv != 18 || nf != 12) return -1;
+  if (nc == 20)
+    return kc_dtype<20>(dtype, dgdq, dgdf, d, Hqq, Hqf, Hff, S, stream);
+  if (nc == 34)
+    return kc_dtype<34>(dtype, dgdq, dgdf, d, Hqq, Hqf, Hff, S, stream);
   return -1;
 }
 

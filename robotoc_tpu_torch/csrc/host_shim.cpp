@@ -16,7 +16,7 @@ using rtt::KcStage;
 using rtt::RiccatiBwd;
 
 namespace {
-constexpr int NV = 18, NU = 12, NF = 12, NC = 20, W = 2 * NV + NU;
+constexpr int NV = 18, NU = 12, NF = 12, W = 2 * NV + NU;
 constexpr int NY = NV + NF, NX = 2 * NV;
 
 template <int N>
@@ -54,14 +54,25 @@ void riccati(int Bn, int N, const double* A, const double* B,
            ws.data(), 0, 1);
   }
 }
-template <bool WC>
+template <int NCC, int CT, bool WC>
 void chain(const double* consts, const int* topo, const double* const* ins,
            double* const* outs, long long S) {
-  using K = rtt::ChainStage<double, NV, 13, 4, WC>;
+  using K = rtt::ChainStage<double, NV, 13, NCC, WC, CT>;
   std::vector<double> ws(K::WS);
   for (long long s = 0; s < S; ++s)
     K::run(consts, topo, ins, outs, s, ws.data(), 0, 1);
 }
+template <int NG>
+void kc(long long S, const double* dgdq, const double* dgdf, const double* d,
+        double* Hqq, double* Hqf, double* Hff) {
+  using K = KcStage<double, NV, NF, NG>;
+  std::vector<double> ws(K::WS);
+  for (long long s = 0; s < S; ++s)
+    K::run(dgdq + s * NG * NV, dgdf + s * NG * NF, d + s * NG,
+           Hqq + s * NV * NV, Hqf + s * NV * NF, Hff + s * NF * NF,
+           ws.data(), 0, 1);
+}
+
 }  // namespace
 
 extern "C" {
@@ -109,14 +120,16 @@ int rtt_host_k1(long long S, const double* M, const double* J,
   return 0;
 }
 
-int rtt_host_kc(long long S, const double* dgdq, const double* dgdf,
+// Kc on S stages with ng cone rows (20: ANYmal's point feet, 34: the iCub
+// soles).
+int rtt_host_kc(int ng, long long S, const double* dgdq, const double* dgdf,
                 const double* d, double* Hqq, double* Hqf, double* Hff) {
-  using K = KcStage<double, NV, NF, NC>;
-  std::vector<double> ws(K::WS);
-  for (long long s = 0; s < S; ++s)
-    K::run(dgdq + s * NC * NV, dgdf + s * NC * NF, d + s * NC,
-           Hqq + s * NV * NV, Hqf + s * NV * NF, Hff + s * NF * NF,
-           ws.data(), 0, 1);
+  if (ng == 20)
+    kc<20>(S, dgdq, dgdf, d, Hqq, Hqf, Hff);
+  else if (ng == 34)
+    kc<34>(S, dgdq, dgdf, d, Hqq, Hqf, Hff);
+  else
+    return -1;
   return 0;
 }
 
@@ -171,15 +184,25 @@ int rtt_host_riccati_bwd(int nf, int Bn, int N, const double* A,
   return 0;
 }
 
-// K6 on S stages (ANYmal: nv 18, 13 joints, 4 point feet); ins/outs in
-// the order of ops/chain.py.
-int rtt_host_chain(int with_cost, const double* consts, const int* topo,
-                   const double* const* ins, double* const* outs,
-                   long long S) {
-  if (with_cost)
-    chain<true>(consts, topo, ins, outs, S);
-  else
-    chain<false>(consts, topo, ins, outs, S);
+// K6 on S stages (nv 18, 13 joints: ANYmal's 4 point feet, nc 4, ctype 3,
+// or the iCub lower half's 2 soles, nc 2, ctype 6); ins/outs in the order
+// of ops/chain.py.
+int rtt_host_chain(int with_cost, int nc, int ctype, const double* consts,
+                   const int* topo, const double* const* ins,
+                   double* const* outs, long long S) {
+  if (nc == 4 && ctype == rtt::kPoint) {
+    if (with_cost)
+      chain<4, rtt::kPoint, true>(consts, topo, ins, outs, S);
+    else
+      chain<4, rtt::kPoint, false>(consts, topo, ins, outs, S);
+  } else if (nc == 2 && ctype == rtt::kSurface) {
+    if (with_cost)
+      chain<2, rtt::kSurface, true>(consts, topo, ins, outs, S);
+    else
+      chain<2, rtt::kSurface, false>(consts, topo, ins, outs, S);
+  } else {
+    return -1;
+  }
   return 0;
 }
 

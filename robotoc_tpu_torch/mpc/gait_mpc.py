@@ -1,5 +1,5 @@
-"""Periodic-gait whole-body MPC for quadrupeds (counterpart of
-robotoc_tpu/mpc/gait_mpc.py, the parts the trot runs).
+"""Periodic-gait whole-body MPC (counterpart of robotoc_tpu/mpc/gait_mpc.py,
+the parts the quadruped trot and the biped walk run).
 
 A gait is a cycle of swing sets plus (swing_time, stance_time |
 flying_time) timing. Each control update re-plans the steps on the host,
@@ -294,6 +294,55 @@ class PeriodicGaitMPC:
     def kkt_error(self, t, q, v):
         return float(self._solver.kkt_error(self.grid, q, v, self.sol,
                                             costs=self._costs))
+
+
+class MPCBipedWalk(PeriodicGaitMPC):
+    """Humanoid walking MPC on two surface contacts (6-D wrenches, 17-row
+    wrench cones). Feet order (l_sole, r_sole); the right foot swings
+    first."""
+    CYCLE = ((1,), (0,))
+    FEET_BIPED = ["l_sole", "r_sole"]
+
+    def __init__(self, model: rm.RobotModel, T: float, N: int,
+                 feet=None, friction_coefficient: float = 0.5,
+                 options: SolverOptions = SolverOptions(
+                     switching_constraints=True),
+                 baumgarte_time_step: float = 0.05,
+                 wrench_cone_rect=(0.1, 0.05)):
+        feet = feet or self.FEET_BIPED
+        super().__init__(model, T, N, feet=feet,
+                         friction_coefficient=friction_coefficient,
+                         options=options,
+                         baumgarte_time_step=baumgarte_time_step,
+                         contact_types=(ct.SURFACE,) * len(feet),
+                         rect=wrench_cone_rect)
+        nv, dimu = model.nv, model.dimu
+        kw = dict(dtype=model.dtype, device=model.device)
+        # the biped stack: base rotation 1e3 and joints 0.001 (impact 1),
+        # v 1, u 1e-2, impact dv 1e-2; base rotation, feet and CoM as the
+        # trot's
+        qw = [0.0, 0.0, 0.0, 1000.0, 1000.0, 1000.0]
+        self.config_cost = make_config_cost(
+            model,
+            q_weight=torch.tensor(qw + [0.001] * (nv - 6), **kw),
+            v_weight=torch.full((nv,), 1.0, **kw),
+            a_weight=torch.full((nv,), 1e-6, **kw),
+            u_weight=torch.full((dimu,), 1e-2, **kw),
+            q_weight_terminal=torch.tensor(qw + [0.001] * (nv - 6), **kw),
+            v_weight_terminal=torch.full((nv,), 1.0, **kw),
+            q_weight_impact=torch.tensor(qw + [1.0] * (nv - 6), **kw),
+            v_weight_impact=torch.full((nv,), 1.0, **kw),
+            dv_weight_impact=torch.full((nv,), 1e-2, **kw))
+        self.foot_weight = torch.full((3,), 1e4, **kw)
+        self.com_weight = torch.full((3,), 1e3, **kw)
+
+    def set_wrench_cone_rectangular(self, X: float, Y: float):
+        """Half-lengths (X, Y) of the sole rectangle of every contact's
+        wrench cone."""
+        self.contacts = dataclasses.replace(
+            self.contacts, rect=torch.tensor(
+                [X, Y], dtype=self.model.dtype,
+                device=self.model.device).expand(self.nc, 2).clone())
 
 
 def _np(x):

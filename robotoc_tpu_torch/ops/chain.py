@@ -18,7 +18,10 @@ Inputs and outputs are batch-first (S, ...), S = B * (stages per
 scenario) flattened, with the JAX kernel's names and layouts (_OUTS,
 _COST_OUTS). `chain` runs the plain version for CPU tensors and launches
 the kernel for CUDA tensors, or raises; `chain.launches` counts launches.
-Point contacts only: surface contacts raise NotImplementedError.
+The contact stack is uniform: all point contacts (ANYmal's feet) or all
+surface contacts (the iCub soles: SE(3)-log Baumgarte rows against R_ref,
+17-row wrench cones on the sole rectangle); a mixed stack raises
+NotImplementedError.
 """
 from __future__ import annotations
 
@@ -44,8 +47,9 @@ _COST_OUTS = ("cq_cost", "cq_lq", "cq_lv", "cq_la", "cq_lu", "cq_Wq",
 # cost-fold inputs: u, dt, task refs, task activity, base-rotation quat,
 # q/v/a/u/task/base-rotation weights, q_ref, v_ref, q_next
 N_COST_IN = 14
-# (nv, nj, nc) the CUDA library is instantiated for (ANYmal, four feet)
-KERNEL_DIMS = (18, 13, 4)
+# (nv, nj, nc, contact type) the CUDA library is instantiated for
+KERNEL_DIMS = frozenset({(18, 13, 4, ct.POINT),      # ANYmal, four feet
+                         (18, 13, 2, ct.SURFACE)})   # iCub lower half, soles
 
 
 class ChainMeta(NamedTuple):
@@ -57,20 +61,32 @@ class ChainMeta(NamedTuple):
     ncone: int
     nu: int
     with_cost: bool
+    ctype: int              # ct.POINT or ct.SURFACE (uniform stacks)
+
+
+def contact_type(contacts) -> int:
+    """The type every contact of the stack has; a mixed point/surface
+    stack raises NotImplementedError (K6 takes uniform stacks, as every
+    MPC of the JAX package builds them)."""
+    types = set(contacts.types)
+    if len(types) != 1:
+        raise NotImplementedError("the chain kernel K6 takes stacks of one "
+                                  f"contact type, got {contacts.types}")
+    return types.pop()
 
 
 def chain_meta(model, contacts, with_cost=False) -> ChainMeta:
     return ChainMeta(nq=model.nq, nv=model.nv, nj=model.nj,
                      nf=contacts.max_dimf, nc=contacts.n_contacts,
                      ncone=contacts.dimc_cone, nu=model.dimu,
-                     with_cost=bool(with_cost))
+                     with_cost=bool(with_cost),
+                     ctype=contact_type(contacts))
 
 
 def chain_supported(model, contacts) -> bool:
-    """Point-contact stacks on a tree whose parents precede their
-    children (the surface-contact branch is not ported)."""
-    return (contacts.n_contacts > 0
-            and all(t == ct.POINT for t in contacts.types)
+    """Uniform point or surface stacks on a tree whose parents precede
+    their children."""
+    return (contacts.n_contacts > 0 and len(set(contacts.types)) == 1
             and all(p < i for i, p in enumerate(model.parents)))
 
 
@@ -130,17 +146,18 @@ def _out_shapes(meta: ChainMeta):
 def _in_shapes(meta: ChainMeta):
     nq, nv, nc, nu = meta.nq, meta.nv, meta.nc, meta.nu
     ntask = 3 * nc + 3
-    shapes = [(nq,), (nv,), (nv,), (meta.nf,), (nc,), (nc, 3)]
+    shapes = [(nq,), (nv,), (nv,), (meta.nf,), (nc,), (nc, 3), (nc, 3, 3)]
     if meta.with_cost:
         shapes += [(nu,), (1,), (ntask,), (ntask,), (4,), (nv,), (nv,),
                    (nv,), (nu,), (ntask,), (3,), (nq,), (nv,), (nq,)]
     return shapes
 
 
-def _check_point(contacts):
-    if any(t != ct.POINT for t in contacts.types):
-        raise NotImplementedError("the chain kernel K6 takes point contacts"
-                                  " only (surface contacts are not ported)")
+def _identity_R_ref(q, nc):
+    """R_ref for a caller that gives none: the identity for every contact
+    (point contacts do not read it)."""
+    eye = torch.eye(3, dtype=q.dtype, device=q.device)
+    return eye.expand((q.shape[0], nc, 3, 3)).contiguous()
 
 
 # ---------------------------------------------------------------------------
@@ -148,10 +165,10 @@ def _check_point(contacts):
 # ---------------------------------------------------------------------------
 
 def _plain_one(model, contacts, with_cost, q, v, a, f_eff, fric, p_ref,
-               *cost_ins):
+               R_ref, *cost_ins):
     ((tau, C, g, dgdf), (dtq, dtv, M), (dCq, dCv, J), dgdq,
      (task, dtask)) = ct.fused_stage_derivatives(
-        model, contacts, q, v, a, f_eff, fric, p_ref, None, with_task=True)
+        model, contacts, q, v, a, f_eff, fric, p_ref, R_ref, with_task=True)
     out = dict(tau=tau, dtau_dq=dtq, dtau_dv=dtv, M=M, C=C, dCdq=dCq,
                dCdv=dCv, J=J, g=g, dgdq=dgdq, dgdf=dgdf, task=task,
                dtask=dtask)
@@ -183,10 +200,12 @@ def _plain_one(model, contacts, with_cost, q, v, a, f_eff, fric, p_ref,
 def chain_plain(model, contacts, q, v, a, f_eff, fric, p_ref, R_ref=None,
                 *cost_ins):
     """K6's function in plain PyTorch over (S, ...) stages -> dict of
-    (S, ...) outputs. R_ref is taken for the interface's sake: point
-    contacts do not read it. With the N_COST_IN cost-fold inputs the
-    cq_*/se_* outputs are added."""
-    _check_point(contacts)
+    (S, ...) outputs. R_ref (S, nc, 3, 3): the surface contacts' reference
+    rotations (None: the identity; point contacts do not read it). With
+    the N_COST_IN cost-fold inputs the cq_*/se_* outputs are added."""
+    contact_type(contacts)
+    if R_ref is None:
+        R_ref = _identity_R_ref(q, contacts.n_contacts)
     with_cost = len(cost_ins) == N_COST_IN
     if cost_ins and not with_cost:
         raise ValueError(f"chain: {len(cost_ins)} cost-fold inputs, expected "
@@ -195,7 +214,7 @@ def chain_plain(model, contacts, q, v, a, f_eff, fric, p_ref, R_ref=None,
     def one(*args):
         return _plain_one(model, contacts, with_cost, *args)
 
-    return vmap(one)(q, v, a, f_eff, fric, p_ref, *cost_ins)
+    return vmap(one)(q, v, a, f_eff, fric, p_ref, R_ref, *cost_ins)
 
 
 # ---------------------------------------------------------------------------
@@ -213,7 +232,8 @@ def model_tables(model, contacts, dtype, device):
         npf(model.inertia).reshape(model.nj, 9)], axis=1)
     per_contact = np.concatenate([
         npf(model.frame_R)[fids].reshape(-1, 9), npf(model.frame_p)[fids],
-        npf(contacts.kp)[:, None], npf(contacts.kv)[:, None]], axis=1)
+        npf(contacts.kp)[:, None], npf(contacts.kv)[:, None],
+        npf(contacts.rect)], axis=1)
     consts = np.concatenate([per_joint.reshape(-1), npf(model.gravity),
                              per_contact.reshape(-1),
                              [float(npf(model.mass).sum())]])
@@ -244,7 +264,7 @@ def _lib():
     lib = kernels.library("chain")
     if not getattr(lib, "_rtt_typed", False):
         P, I = ctypes.c_void_p, ctypes.c_int
-        lib.rtt_chain.argtypes = [I] * 5 + [P] * 4 + [ctypes.c_longlong, P]
+        lib.rtt_chain.argtypes = [I] * 6 + [P] * 4 + [ctypes.c_longlong, P]
         lib.rtt_chain.restype = I
         lib._rtt_typed = True
     return lib
@@ -256,7 +276,6 @@ def chain(model, contacts, q, v, a, f_eff, fric, p_ref, R_ref=None,
     if q.device.type == "cpu":
         return chain_plain(model, contacts, q, v, a, f_eff, fric, p_ref,
                            R_ref, *cost_ins)
-    _check_point(contacts)
     meta = chain_meta(model, contacts, with_cost=len(cost_ins) == N_COST_IN)
     if cost_ins and not meta.with_cost:
         raise ValueError(f"chain: {len(cost_ins)} cost-fold inputs, expected "
@@ -264,7 +283,9 @@ def chain(model, contacts, q, v, a, f_eff, fric, p_ref, R_ref=None,
     if not chain_supported(model, contacts):
         raise ValueError("chain: parents must precede their children")
     S = q.shape[0]
-    ins = [q, v, a, f_eff, fric, p_ref] + list(cost_ins)
+    if R_ref is None:
+        R_ref = _identity_R_ref(q, meta.nc)
+    ins = [q, v, a, f_eff, fric, p_ref, R_ref] + list(cost_ins)
     kernels.check_args("chain", ins, [(S,) + s for s in _in_shapes(meta)])
     consts, topo = _tables(model, contacts, q.dtype, q.device)
     shapes = _out_shapes(meta)
@@ -275,13 +296,13 @@ def chain(model, contacts, q, v, a, f_eff, fric, p_ref, R_ref=None,
     out_ptrs = (ctypes.c_void_p * len(names))(
         *[outs[n].data_ptr() for n in names])
     rc = _lib().rtt_chain(kernels.DTYPE_CODE[q.dtype], int(meta.with_cost),
-                          meta.nv, meta.nj, meta.nc, kernels.ptr(consts),
-                          kernels.ptr(topo), in_ptrs, out_ptrs, S,
-                          kernels.stream(q))
+                          meta.nv, meta.nj, meta.nc, meta.ctype,
+                          kernels.ptr(consts), kernels.ptr(topo), in_ptrs,
+                          out_ptrs, S, kernels.stream(q))
     if rc == -1:
-        raise ValueError(f"chain: no kernel for (nv, nj, nc) = "
-                         f"{(meta.nv, meta.nj, meta.nc)} / {q.dtype}; built "
-                         f"for {KERNEL_DIMS}")
+        raise ValueError(f"chain: no kernel for (nv, nj, nc, type) = "
+                         f"{_dims(meta)} / {q.dtype}; built for "
+                         f"{sorted(KERNEL_DIMS)}")
     if rc != 0:
         raise RuntimeError(f"chain: CUDA launch failed (cudaError {rc})")
     chain.launches += 1
@@ -291,28 +312,35 @@ def chain(model, contacts, q, v, a, f_eff, fric, p_ref, R_ref=None,
 chain.launches = 0
 
 
-def op_count(model, contacts, q, v, a, f_eff, fric, p_ref, *cost_ins,
-             as_written=False):
+def _dims(meta: ChainMeta):
+    return (meta.nv, meta.nj, meta.nc, meta.ctype)
+
+
+def op_count(model, contacts, q, v, a, f_eff, fric, p_ref, R_ref=None,
+             *cost_ins, as_written=False):
     """(value, tangent) operations of K6's function on these S stages:
     values once per stage, tangents only where they are not structural
     zeros (csrc/chain_flops.cpp, built with g++). With as_written, every
     operation the kernel does, repeated values and zeros included. Inputs
     as for `chain`, on any device."""
-    _check_point(contacts)
     meta = chain_meta(model, contacts, with_cost=len(cost_ins) == N_COST_IN)
-    if (meta.nv, meta.nj, meta.nc) != KERNEL_DIMS:
-        raise ValueError(f"op_count: built for {KERNEL_DIMS}")
+    if _dims(meta) not in KERNEL_DIMS:
+        raise ValueError(f"op_count: built for {sorted(KERNEL_DIMS)}")
+    if R_ref is None:
+        R_ref = _identity_R_ref(q, meta.nc)
     ins = [t.detach().to("cpu", torch.float64).contiguous()
-           for t in (q, v, a, f_eff, fric, p_ref) + tuple(cost_ins)]
+           for t in (q, v, a, f_eff, fric, p_ref, R_ref) + tuple(cost_ins)]
     consts, topo = model_tables(model, contacts, torch.float64, "cpu")
     lib = kernels.host_library("chain_flops")
-    P = ctypes.c_void_p
-    lib.rtt_chain_flops.argtypes = [ctypes.c_int, ctypes.c_int, P,
-                                    ctypes.c_int, P, P, ctypes.c_longlong, P]
+    P, I = ctypes.c_void_p, ctypes.c_int
+    lib.rtt_chain_flops.argtypes = [I, I, I, I, P, I, P, P,
+                                    ctypes.c_longlong, P]
     out = (ctypes.c_longlong * 2)()
-    lib.rtt_chain_flops(int(meta.with_cost), int(as_written),
-                        P(consts.data_ptr()), consts.numel(),
-                        P(topo.data_ptr()),
-                        (P * len(ins))(*[t.data_ptr() for t in ins]),
-                        ins[0].shape[0], out)
+    rc = lib.rtt_chain_flops(int(meta.with_cost), int(as_written), meta.nc,
+                             meta.ctype, P(consts.data_ptr()),
+                             consts.numel(), P(topo.data_ptr()),
+                             (P * len(ins))(*[t.data_ptr() for t in ins]),
+                             ins[0].shape[0], out)
+    if rc != 0:
+        raise ValueError(f"op_count: no count for {_dims(meta)}")
     return int(out[0]), int(out[1])

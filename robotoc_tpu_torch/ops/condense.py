@@ -41,8 +41,10 @@ IN_NAMES = ("M", "J", "inactive", "Tw1", "Tw2", "r1", "e2",
 OUT_NAMES = ("inv11", "inv12", "Sinv", "G", "c0", "A", "Bm", "xres",
              "Qxx", "Qxu", "Quu", "lx", "lu", "coneHqf", "Hff_c")
 
-# dims the CUDA library is instantiated for: (nv, nu, nf, ncone)
-KERNEL_DIMS = (18, 12, 12, 20)
+# dims the CUDA library is instantiated for: (nv, nu, nf) and Kc's cone
+# row counts (ANYmal's four 5-row pyramids, the iCub's two 17-row wrench
+# cones)
+KERNEL_DIMS = (18, 12, 12, (20, 34))
 
 
 def _t(x):

@@ -39,6 +39,12 @@ def np_tree(x):
     return jax.tree.map(np.array, x)
 
 
+def jax_init_solution(solver, grid, q, v):
+    """A JAX OCPSolver's warm start, jitted: one compile in place of the
+    eager dispatch of every op (the same values, a tenth of the time)."""
+    return jax.jit(solver.init_solution)(grid, q, v)
+
+
 def jax_problem(N=4, dtype=jnp.float64):
     """The golden ANYmal standing OCP, JAX side."""
     from robotoc_tpu.constraints.joint_limits import make_joint_limits
@@ -137,6 +143,43 @@ def jax_trot(N=10, dtype=jnp.float64, t0=0.35):
                 grid=grid, costs=costs, q0=q0, v0=v0)
 
 
+def icub_q0(m):
+    """The iCub lower half standing with bent knees, soles on z = 0 (the
+    setup of tests/test_biped.py), through the JAX package."""
+    from robotoc_tpu.models import forward_kinematics, frame_placement
+    knee = np.pi / 6
+    q0 = np.array([0, 0, 0, 0, 0, 0, 1,
+                   0.5 * knee, 0, 0, -knee, 0.5 * knee, 0,
+                   0.5 * knee, 0, 0, -knee, 0.5 * knee, 0])
+    Rw, pw = forward_kinematics(m, jnp.asarray(q0))
+    zs = [np.asarray(frame_placement(m, m.frame_id(f), Rw, pw)[1])[2]
+          for f in ["l_sole", "r_sole"]]
+    q0[2] = -0.5 * (zs[0] + zs[1])
+    return q0
+
+
+def jax_walk(N=6, dtype=jnp.float64, t0=0.62):
+    """The iCub lower-half biped walk (tools/bench_icub_walk.py's problem at
+    horizon N, planned at t0 from standing), JAX side: model, MPCBipedWalk,
+    grid and cost stack, in the dict layout of jax_trot."""
+    from robotoc_tpu.models import load_robot
+    from robotoc_tpu.mpc.gait_mpc import MPCBipedWalk
+    m = load_robot("icub_lower_half", dtype=dtype)
+    mpc = MPCBipedWalk(m, T=0.7, N=N)
+    mpc.set_wrench_cone_rectangular(X=0.05, Y=0.025)
+    planner = mpc.make_planner()
+    planner.set_gait_pattern(np.array([0.22, 0, 0]), 0.0)
+    mpc.set_gait_pattern(planner, swing_height=0.1, swing_time=0.7,
+                         stance_time=0.0, swing_start_time=0.5)
+    q0 = jnp.asarray(icub_q0(m), dtype)
+    v0 = jnp.zeros(18, dtype)
+    mpc.planner.init(q0)
+    mpc.config_cost = mpc.config_cost.replace(q_ref=q0)
+    grid, costs = mpc._build_schedule_and_costs(t0, q0, v0)
+    return dict(model=m, mpc=mpc, contacts=mpc.contacts, limits=mpc.limits,
+                grid=grid, costs=costs, q0=q0, v0=v0)
+
+
 def trot_to_torch(jt, dtype=torch.float64):
     """The JAX trot problem's objects converted to the port's (CPU)."""
     kw = dict(dtype=dtype, device="cpu")
@@ -187,6 +230,18 @@ def anymal_states(model, n, seed):
                       .expand(n, 19), torch.as_tensor(dq)).numpy()
     return (q, rng.standard_normal((n, 18)), rng.standard_normal((n, 18)),
             30.0 * rng.standard_normal((n, 12)))
+
+
+def rodrigues(w):
+    """Rotation matrices exp(hat(w)) of rotation vectors w (..., 3),
+    numpy."""
+    th = np.linalg.norm(w, axis=-1)[..., None, None]
+    K = np.zeros(w.shape[:-1] + (3, 3))
+    K[..., 0, 1], K[..., 0, 2] = -w[..., 2], w[..., 1]
+    K[..., 1, 2] = -w[..., 0]
+    K = K - np.swapaxes(K, -1, -2)
+    return (np.eye(3) + np.sin(th) / th * K
+            + (1 - np.cos(th)) / th ** 2 * K @ K)
 
 
 def close_tree(got, want, tol, name=""):

@@ -1,10 +1,11 @@
 """The chain kernel K6's plain version and its host build (ops/chain.py,
 csrc/chain_stage.cuh) against the JAX package.
 
-Inputs: the stage slots of the mid-gait ANYmal trot at N = 10 (impact
-slots included, as the solver feeds them), at an iterate moved off the
-warm start by numpy-seeded noise. Both variants: without the cost fold
-(the standing stack) and with it (the gait stack).
+Inputs: the stage slots of the mid-gait ANYmal trot at N = 10 (point
+contacts) and of the mid-gait iCub walk at N = 6 (surface contacts), impact
+slots included, as the solver feeds them, at iterates moved off the warm
+start by numpy-seeded noise. Both variants: without the cost fold (the
+standing stacks) and with it (the gait stacks).
   * chain_plain against the XLA oracles: fused_stage_derivatives
     (with_task), quadratize_stage of the stack and state_equation, 1e-9
     relative to each output's magnitude (at least one);
@@ -22,7 +23,8 @@ import torch
 import jax
 import jax.numpy as jnp
 
-from _torch_cases import jax_trot, trot_iterate, trot_to_torch
+from _torch_cases import (jax_trot, jax_walk, rodrigues, trot_iterate,
+                          trot_to_torch)
 
 from robotoc_tpu.costs import base as jcost_base
 from robotoc_tpu.models import contacts as jct
@@ -30,22 +32,21 @@ from robotoc_tpu.models import robot as jrm
 from robotoc_tpu.ops import pallas_chain as pch
 from robotoc_tpu.solver import ocp_solver as JOS
 from robotoc_tpu_torch import convert, kernels
-from robotoc_tpu_torch.models.contacts import SURFACE, make_contacts
+from robotoc_tpu_torch.models.contacts import POINT, SURFACE, make_contacts
 from robotoc_tpu_torch.ops import chain as chn
 from robotoc_tpu_torch.solver import ocp_solver as TOS
 
 NAMES = {False: chn._OUTS, True: chn._OUTS + chn._COST_OUTS}
 
 
-@pytest.fixture(scope="module")
-def case():
-    jt = jax_trot(10)
+def _case(jt, seed, scale):
     tp = trot_to_torch(jt)
-    f = trot_iterate(tp, seed=11, scale=0.1)
+    f = trot_iterate(tp, seed=seed, scale=scale)
     g = {k: np.array(v) for k, v in vars(jt["grid"]).items()}
-    rowmask = np.repeat(g["contact_mask"][:-1], 3, axis=-1)
+    rowmask = np.repeat(g["contact_mask"][:-1], tp["contacts"].types,
+                        axis=-1)
     ins = (f["q"][:-1], f["v"][:-1], f["a"][:-1], f["f"][:-1] * rowmask,
-           g["friction"][:-1], g["p_ref"][:-1])
+           g["friction"][:-1], g["p_ref"][:-1], g["R_ref"][:-1])
     # the cost-fold inputs, port side (a fleet of one) and JAX side
     sol_t = convert.solution(f, device="cpu").map(lambda x: x.unsqueeze(0))
     grid_t = TOS._fleet(sol_t, tp["grid"], tp["q0"][None], tp["v0"][None])[1]
@@ -58,11 +59,28 @@ def case():
                 cost_j=cost_j)
 
 
+@pytest.fixture(scope="module")
+def case():
+    return _case(jax_trot(10), seed=11, scale=0.1)
+
+
+@pytest.fixture(scope="module")
+def surface_case():
+    """The walk's stage slots (two soles, 6-D wrenches; one sole in swing,
+    a touchdown in the horizon), R_ref moved off the identity so that the
+    SE(3)-log residual sees a rotation."""
+    c = _case(jax_walk(6), seed=12, scale=0.1)
+    w = 0.1 * np.random.default_rng(13).standard_normal(
+        c["ins"][6].shape[:-1])
+    c["ins"] = c["ins"][:6] + (rodrigues(w),)
+    return c
+
+
 def _plain(case, with_cost):
     tp = case["tp"]
     ins = [torch.as_tensor(x) for x in case["ins"]]
     cost = case["cost_t"] if with_cost else ()
-    return chn.chain_plain(tp["model"], tp["contacts"], *ins, None, *cost)
+    return chn.chain_plain(tp["model"], tp["contacts"], *ins, *cost)
 
 
 def _close(got, want, tol, name):
@@ -78,14 +96,17 @@ def test_cost_fold_inputs_match_jax(case):
         _close(t.numpy(), np.asarray(j), 1e-14, f"cost input {i}")
 
 
-@pytest.mark.parametrize("with_cost", [False, True])
-def test_chain_plain_matches_xla_oracles(case, with_cost):
+def _xla_oracles(case):
+    """The XLA oracles' outputs, cost fold included, computed once per
+    case: both variants of chain_plain are held against them."""
+    if "xla" in case:
+        return case["xla"]
     jt, g, f = case["jt"], case["g"], case["f"]
     m, contacts = jt["model"], jt["contacts"]
 
-    def one(q, v, a, fe, fr, pr, u, t, dt, qn):
+    def one(q, v, a, fe, fr, pr, R, u, t, dt, qn):
         res = jct.fused_stage_derivatives(m, contacts, q, v, a, fe, fr, pr,
-                                          None, with_task=True)
+                                          R, with_task=True)
         ((tau, C, gc, dgdf), (dtq, dtv, M), (dCq, dCv, J), dgdq) = res[:4]
         out = dict(tau=tau, dtau_dq=dtq, dtau_dv=dtv, M=M, C=C, dCdq=dCq,
                    dCdv=dCv, J=J, g=gc, dgdq=dgdq, dgdf=dgdf, task=res[4][0],
@@ -104,40 +125,34 @@ def test_chain_plain_matches_xla_oracles(case, with_cost):
                    se_xres=-(Cinv @ r))
         return out
 
-    ref = jax.jit(jax.vmap(one))(*case["ins"], f["u"][:-1], g["t"][:-1],
-                                 g["dt"], f["q"][1:])
+    case["xla"] = jax.jit(jax.vmap(one))(*case["ins"], f["u"][:-1],
+                                         g["t"][:-1], g["dt"], f["q"][1:])
+    return case["xla"]
+
+
+def _check_xla_oracles(case, with_cost):
+    ref = _xla_oracles(case)
     got = _plain(case, with_cost)
     for name in NAMES[with_cost]:
         _close(got[name].numpy(), ref[name], 1e-9, name)
 
 
-@pytest.mark.parametrize("with_cost", [False, True])
-def test_chain_plain_matches_pallas_interpret(case, with_cost):
-    jt = case["jt"]
-    fn = pch.make_chain(jt["model"], jt["contacts"], interpret=True,
-                        with_cost=with_cost)
-    R_ref = case["g"]["R_ref"][:-1]
-    ref = jax.jit(fn)(*case["ins"], R_ref,
-                      *(case["cost_j"] if with_cost else ()))
+def _check_pallas_interpret(case, with_cost):
+    """chain_plain against the Pallas kernel in interpret mode, run once
+    per case with the cost fold (its other outputs are the no-fold
+    variant's)."""
+    if "pallas" not in case:
+        jt = case["jt"]
+        fn = pch.make_chain(jt["model"], jt["contacts"], interpret=True,
+                            with_cost=True)
+        case["pallas"] = jax.jit(fn)(*case["ins"], *case["cost_j"])
+    ref = case["pallas"]
     got = _plain(case, with_cost)
     for name in NAMES[with_cost]:
         _close(got[name].numpy(), ref[name], 1e-6, name)
 
 
-@pytest.fixture(scope="module")
-def host():
-    if shutil.which("g++") is None:
-        pytest.skip("g++ is not installed")
-    lib = kernels.host_library()
-    P = ctypes.c_void_p
-    lib.rtt_host_chain.argtypes = [ctypes.c_int, P, P, P, P,
-                                   ctypes.c_longlong]
-    lib.rtt_host_chain.restype = ctypes.c_int
-    return lib
-
-
-@pytest.mark.parametrize("with_cost", [False, True])
-def test_host_build_matches_chain_plain(case, host, with_cost):
+def _check_host_build(case, host, with_cost):
     tp = case["tp"]
     ins = [torch.as_tensor(x).contiguous() for x in case["ins"]]
     ins += [c.contiguous() for c in case["cost_t"]] if with_cost else []
@@ -149,7 +164,8 @@ def test_host_build_matches_chain_plain(case, host, with_cost):
                                     torch.float64, "cpu")
     P = ctypes.c_void_p
     rc = host.rtt_host_chain(
-        int(with_cost), P(consts.data_ptr()), P(topo.data_ptr()),
+        int(with_cost), tp["contacts"].n_contacts, tp["contacts"].types[0],
+        P(consts.data_ptr()), P(topo.data_ptr()),
         (P * len(ins))(*[t.data_ptr() for t in ins]),
         (P * len(names))(*[got[n].data_ptr() for n in names]),
         ins[0].shape[0])
@@ -158,22 +174,7 @@ def test_host_build_matches_chain_plain(case, host, with_cost):
         _close(got[name].numpy(), want[name].numpy(), 1e-12, name)
 
 
-def test_chain_refuses_surface_contacts(case):
-    tp = case["tp"]
-    surf = make_contacts(tp["model"], ["LF_FOOT", "RF_FOOT"],
-                         types=(SURFACE, SURFACE))
-    z = torch.zeros(2, 19, dtype=torch.float64)
-    args = (z, z[:, :18], z[:, :18], torch.zeros(2, 12, dtype=z.dtype),
-            torch.ones(2, 2, dtype=z.dtype), torch.zeros(2, 2, 3,
-                                                         dtype=z.dtype))
-    assert not chn.chain_supported(tp["model"], surf)
-    with pytest.raises(NotImplementedError):
-        chn.chain(tp["model"], surf, *args)
-
-
-@pytest.mark.skipif(shutil.which("g++") is None, reason="g++ is not "
-                    "installed")
-def test_op_count_charges_values_once(case):
+def _check_op_count(case):
     """K6's operation count (csrc/chain_flops.cpp, the roofline bound's
     numerator): additive over stages, larger with the cost fold, below
     what charging every tangent column the stage's value arithmetic would
@@ -197,6 +198,67 @@ def test_op_count_charges_values_once(case):
     assert counts[True] > counts[False]
 
 
+@pytest.mark.parametrize("with_cost", [False, True])
+def test_chain_plain_matches_xla_oracles(case, with_cost):
+    _check_xla_oracles(case, with_cost)
+
+
+@pytest.mark.parametrize("with_cost", [False, True])
+def test_chain_plain_matches_pallas_interpret(case, with_cost):
+    _check_pallas_interpret(case, with_cost)
+
+
+@pytest.fixture(scope="module")
+def host():
+    if shutil.which("g++") is None:
+        pytest.skip("g++ is not installed")
+    lib = kernels.host_library()
+    P, I = ctypes.c_void_p, ctypes.c_int
+    lib.rtt_host_chain.argtypes = [I, I, I, P, P, P, P, ctypes.c_longlong]
+    lib.rtt_host_chain.restype = I
+    return lib
+
+
+@pytest.mark.parametrize("with_cost", [False, True])
+def test_host_build_matches_chain_plain(case, host, with_cost):
+    _check_host_build(case, host, with_cost)
+
+
+@pytest.mark.skipif(shutil.which("g++") is None, reason="g++ is not "
+                    "installed")
+def test_op_count_charges_values_once(case):
+    _check_op_count(case)
+
+
+# ---- surface contacts (the iCub soles) --------------------------------
+
+def test_surface_cost_fold_inputs_match_jax(surface_case):
+    test_cost_fold_inputs_match_jax(surface_case)
+
+
+@pytest.mark.parametrize("with_cost", [False, True])
+def test_surface_chain_plain_matches_xla_oracles(surface_case, with_cost):
+    _check_xla_oracles(surface_case, with_cost)
+
+
+@pytest.mark.parametrize("with_cost", [False, True])
+def test_surface_chain_plain_matches_pallas_interpret(surface_case,
+                                                      with_cost):
+    _check_pallas_interpret(surface_case, with_cost)
+
+
+@pytest.mark.parametrize("with_cost", [False, True])
+def test_surface_host_build_matches_chain_plain(surface_case, host,
+                                                with_cost):
+    _check_host_build(surface_case, host, with_cost)
+
+
+@pytest.mark.skipif(shutil.which("g++") is None, reason="g++ is not "
+                    "installed")
+def test_op_count_surface(surface_case):
+    _check_op_count(surface_case)
+
+
 def test_use_chain_needs_the_kernels(case):
     """use_chain runs K6 through `chain`; with the kernels switched off
     there is no route for it, and the solver refuses the combination."""
@@ -208,3 +270,23 @@ def test_use_chain_needs_the_kernels(case):
     assert not TOS.OCPSolver(
         tp["model"], tp["contacts"], tp["costs"], tp["limits"], T=0.5, N=10,
         options=TOS.SolverOptions(use_kernels=False)).use_chain
+
+
+def test_chain_refuses_mixed_stacks(case):
+    """K6 takes stacks of one contact type: a mixed point/surface stack
+    raises in the wrapper (on any device), the plain version and the
+    operation count; uniform stacks of either type are supported."""
+    tp = case["tp"]
+    m = tp["model"]
+    mixed = make_contacts(m, ["LF_FOOT", "RF_FOOT"], types=(POINT, SURFACE))
+    surf = make_contacts(m, ["LF_FOOT", "RF_FOOT"], types=(SURFACE, SURFACE))
+    z = torch.zeros(2, 19, dtype=torch.float64)
+    args = (z, z[:, :18], z[:, :18], torch.zeros(2, 9, dtype=z.dtype),
+            torch.ones(2, 2, dtype=z.dtype),
+            torch.zeros(2, 2, 3, dtype=z.dtype))
+    assert not chn.chain_supported(m, mixed)
+    assert chn.chain_supported(m, surf) and chn.chain_supported(
+        m, tp["contacts"])
+    for fn in (chn.chain, chn.chain_plain, chn.op_count):
+        with pytest.raises(NotImplementedError):
+            fn(m, mixed, *args)

@@ -16,8 +16,9 @@ from torch.func import vmap
 import jax
 import jax.numpy as jnp
 
-from _torch_cases import (assert_close, fields, jax_problem, np_tree,
-                          perturbed_solution, to_torch)
+from _torch_cases import (assert_close, fields, jax_init_solution,
+                          jax_problem, np_tree, perturbed_solution,
+                          to_torch)
 
 from robotoc_tpu.ocp import contact_stage as jstage
 from robotoc_tpu.ops import pallas_condense as pc
@@ -49,7 +50,7 @@ def stages():
     jsolver = JOS.OCPSolver(jp["model"], jp["contacts"], (jp["cost"],),
                             jp["limits"], T=0.5, N=N)
     sol = perturbed_solution(
-        jsolver.init_solution(jp["grid"], jp["q0"], jp["v0"]), seed=0)
+        jax_init_solution(jsolver, jp["grid"], jp["q0"], jp["v0"]), seed=0)
     args = _pre_args(sol, fields(jp["grid"]), 1e-3)
     pre_fn = functools.partial(jstage.stage_pre, jp["model"], jp["contacts"],
                                (jp["cost"],), jp["limits"])

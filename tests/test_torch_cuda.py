@@ -9,9 +9,10 @@ that machine need not have, hence --noconftest):
 Each wrapper is held against its plain version on the same CUDA tensors
 in float64 (1e-10 relative to each output's max-abs), the wrappers refuse
 inputs their kernels do not take, and one Newton update of a small fleet
-on the card matches the same update on the CPU, for the standing problem
-and for the trot (impact slots, switching rows, the chain kernel K6 with
-the cost fold)."""
+on the card matches the same update on the CPU, for the standing problem,
+for the trot (impact slots, switching rows, the chain kernel K6 with the
+cost fold) and for the iCub walk (K6's surface-contact instance, the
+34-row Kc)."""
 import numpy as np
 import pytest
 import torch
@@ -102,18 +103,21 @@ def test_update_on_card_matches_cpu(dev):
         assert err <= 1e-8 * max(1.0, float(want.abs().max())), name
 
 
+@pytest.mark.parametrize("make,t0", [(problems.anymal_trot, 0.35),
+                                     (problems.icub_walk, 0.62)],
+                         ids=["point", "surface"])
 @pytest.mark.parametrize("with_cost", [False, True])
-def test_chain_kernel_matches_plain(dev, with_cost):
+def test_chain_kernel_matches_plain(dev, with_cost, make, t0):
     import chip_smoke
-    p = problems.anymal_trot(N=4, device=dev)
+    p = make(N=4, device=dev, t0=t0)
     sol, q0s, v0s = problems.fleet(p.solver, p.grid, p.q0, p.v0, 2)
     sb, gb, _, _, _ = OS._fleet(chip_smoke.perturbed(p.model, sol), p.grid,
                                 q0s, v0s)
     args, cost = chip_smoke.chain_args(p.model, p.mpc.contacts, p.costs, sb,
                                        gb, with_cost)
     chn.chain.launches = 0
-    got = chn.chain(p.model, p.mpc.contacts, *args, None, *cost)
-    want = chn.chain_plain(p.model, p.mpc.contacts, *args, None, *cost)
+    got = chn.chain(p.model, p.mpc.contacts, *args, *cost)
+    want = chn.chain_plain(p.model, p.mpc.contacts, *args, *cost)
     assert chn.chain.launches == 1
     names = chn._OUTS + (chn._COST_OUTS if with_cost else ())
     _close([got[n] for n in names], [want[n] for n in names])
@@ -124,6 +128,36 @@ def test_trot_update_on_card_matches_cpu(dev):
     for d in (dev, torch.device("cpu")):
         p = problems.anymal_trot(N=4, device=d)
         sol, q0s, v0s = problems.fleet(p.solver, p.grid, p.q0, p.v0, 2)
+        new, kkt, _, _ = p.solver.update(p.grid, q0s, v0s, sol)
+        results.append((new, kkt))
+    (nc, kc), (nh, kh) = results
+    assert torch.allclose(kc.cpu(), kh, rtol=1e-10)
+    for name in ("q", "v", "a", "u", "f", "lmd", "gmm", "xi"):
+        want = getattr(nh, name)
+        err = float((getattr(nc, name).cpu() - want).abs().max())
+        assert err <= 1e-8 * max(1.0, float(want.abs().max())), name
+
+
+def test_kc_34_rows_matches_plain(dev):
+    """Kc on the walk's 2 x 17 wrench-cone rows."""
+    p = problems.icub_walk(N=4, device=dev, t0=0.62)
+    sol, q0s, v0s = problems.fleet(p.solver, p.grid, p.q0, p.v0, 2)
+    sb, gb, _, _, _ = OS._fleet(sol, p.grid, q0s, v0s)
+    pre = OS.stage_inputs(p.model, p.mpc.contacts, p.mpc.limits, 1e-3,
+                          p.costs, sb, gb)
+    args = [pre[k].contiguous() for k in ("dgdq", "dgdf", "d_cone")]
+    assert args[2].shape[-1] == 34
+    cd.kc.launches = 0
+    _close(cd.kc(*args), cd.kc_plain(*args))
+    assert cd.kc.launches == 1
+
+
+def test_walk_update_on_card_matches_cpu(dev):
+    results = []
+    for d in (dev, torch.device("cpu")):
+        p = problems.icub_walk(N=4, device=d, t0=0.62)
+        sol, q0s, v0s = problems.fleet(p.solver, p.grid, p.q0, p.v0, 2,
+                                       scale=0.0075)
         new, kkt, _, _ = p.solver.update(p.grid, q0s, v0s, sol)
         results.append((new, kkt))
     (nc, kc), (nh, kh) = results

@@ -18,8 +18,8 @@ import torch
 import jax
 import jax.numpy as jnp
 
-from _torch_cases import (assert_close, fields, jax_problem, np_tree,
-                          to_torch)
+from _torch_cases import (assert_close, fields, jax_init_solution,
+                          jax_problem, np_tree, to_torch)
 
 from robotoc_tpu.models import robot as jrm
 from robotoc_tpu.solver import ocp_solver as JOS
@@ -48,19 +48,34 @@ def _fleet_inputs(jp, seed):
     v0s = np.zeros((B, 18))
     js = JOS.OCPSolver(jp["model"], jp["contacts"], (jp["cost"],),
                        jp["limits"], T=0.5, N=N)
-    sol0 = fields(js.init_solution(jp["grid"], jp["q0"], jp["v0"]))
+    sol0 = fields(jax_init_solution(js, jp["grid"], jp["q0"], jp["v0"]))
     return q0s, v0s, {k: np.stack([v] * B) for k, v in sol0.items()}
 
 
-def _jax_update(jp, sol, q0s, v0s, dtype):
-    def upd(s, q, v):
-        new, kkt, a_p, _ = JOS._update(
-            jp["model"], jp["contacts"], jp["limits"], 1e-3, 0.995, 0,
-            (jp["cost"],), s, jp["grid"], q, v, use_pallas=False)
-        return new, kkt, a_p
+_PROBLEMS = {}
+
+
+def _problem(dtype=jnp.float64):
+    """The JAX problem of one dtype, its port counterpart and its jitted
+    fleet update, built once per module (one XLA compile per dtype)."""
+    if dtype not in _PROBLEMS:
+        jp = jax_problem(N, dtype=dtype)
+
+        def upd(s, q, v):
+            new, kkt, a_p, _ = JOS._update(
+                jp["model"], jp["contacts"], jp["limits"], 1e-3, 0.995, 0,
+                (jp["cost"],), s, jp["grid"], q, v, use_pallas=False)
+            return new, kkt, a_p
+        tdtype = torch.float64 if dtype == jnp.float64 else torch.float32
+        _PROBLEMS[dtype] = (jp, to_torch(jp, dtype=tdtype),
+                            jax.jit(jax.vmap(upd)))
+    return _PROBLEMS[dtype]
+
+
+def _jax_update(sol, q0s, v0s, dtype):
+    fn = _problem(dtype)[2]
     js = JOS.Solution(**{k: jnp.asarray(v, dtype) for k, v in sol.items()})
-    return np_tree(jax.jit(jax.vmap(upd))(js, jnp.asarray(q0s, dtype),
-                                          jnp.asarray(v0s, dtype)))
+    return np_tree(fn(js, jnp.asarray(q0s, dtype), jnp.asarray(v0s, dtype)))
 
 
 def _port_update(tp, sol, q0s, v0s, dtype):
@@ -76,12 +91,11 @@ def _port_update(tp, sol, q0s, v0s, dtype):
 def test_update_matches_jax_f64(iterate):
     """From the warm start, and from the JAX package's own first iterate
     (so both packages take the second update from the same point)."""
-    jp = jax_problem(N)
-    tp = to_torch(jp)
+    jp, tp, _ = _problem()
     q0s, v0s, sol = _fleet_inputs(jp, 0)
     if iterate == "second":
-        sol = fields(_jax_update(jp, sol, q0s, v0s, jnp.float64)[0])
-    ref_sol, ref_kkt, ref_ap = _jax_update(jp, sol, q0s, v0s, jnp.float64)
+        sol = fields(_jax_update(sol, q0s, v0s, jnp.float64)[0])
+    ref_sol, ref_kkt, ref_ap = _jax_update(sol, q0s, v0s, jnp.float64)
     new, kkt, a_p = _port_update(tp, sol, q0s, v0s, torch.float64)
     assert_close(kkt.numpy(), ref_kkt, 1e-8, "kkt")
     assert_close(a_p.numpy(), ref_ap, 1e-8, "step size")
@@ -97,13 +111,12 @@ def test_update_f32_no_worse_than_jax_f32():
     is held to the f64 update instead: per field, its distance from the
     f64 result is at most that of the JAX package's f32 update (plus 1e-3
     of the field's magnitude)."""
-    jp64 = jax_problem(N)
-    jp32 = jax_problem(N, dtype=jnp.float32)
+    jp64, tp64, _ = _problem()
+    _, tp32, _ = _problem(jnp.float32)
     q0s, v0s, sol = _fleet_inputs(jp64, 3)
-    ref32 = _jax_update(jp32, sol, q0s, v0s, jnp.float32)[0]
-    new64 = _port_update(to_torch(jp64), sol, q0s, v0s, torch.float64)[0]
-    new32, kkt32, _ = _port_update(to_torch(jp32, dtype=torch.float32), sol,
-                                   q0s, v0s, torch.float32)
+    ref32 = _jax_update(sol, q0s, v0s, jnp.float32)[0]
+    new64 = _port_update(tp64, sol, q0s, v0s, torch.float64)[0]
+    new32, kkt32, _ = _port_update(tp32, sol, q0s, v0s, torch.float32)
     assert kkt32.dtype == torch.float32
     for name, val in fields(ref32).items():
         got = getattr(new32, name)
@@ -116,8 +129,7 @@ def test_update_f32_no_worse_than_jax_f32():
 
 
 def test_single_scenario_equals_fleet_member():
-    jp = jax_problem(N)
-    tp = to_torch(jp)
+    jp, tp, _ = _problem()
     q0s, v0s, sol = _fleet_inputs(jp, 5)
     new_b, kkt_b, _ = _port_update(tp, sol, q0s, v0s, torch.float64)
     one = {k: v[1] for k, v in sol.items()}

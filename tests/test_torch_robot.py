@@ -69,6 +69,12 @@ def _J(*xs):
     return [jnp.asarray(x) for x in xs]
 
 
+def _jit(fn, *consts):
+    """fn(*consts, *args) under jax.jit: one compile in place of the eager
+    dispatch of every op (and of every op of a jacfwd) of the reference."""
+    return jax.jit(lambda *args: fn(*consts, *args))
+
+
 def test_load_robot_fields(models):
     """load_robot of the port's own description copy equals the JAX
     model field by field, and so does the model built by convert."""
@@ -148,16 +154,18 @@ def test_fused_stage_derivatives(models, seed):
     jm, tm, jc, tc = models
     q, v, a, f, p_ref, fric = _inputs(seed)
     _close(tct.fused_stage_outputs(tm, tc, *_T(q, v, a, f, fric, p_ref)),
-           jct.fused_stage_outputs(jm, jc, *_J(q, v, a, f, fric, p_ref)))
+           _jit(jct.fused_stage_outputs, jm, jc)(
+               *_J(q, v, a, f, fric, p_ref)))
     _close(tct.fused_stage_derivatives(tm, tc, *_T(q, v, a, f, fric, p_ref)),
-           jct.fused_stage_derivatives(jm, jc, *_J(q, v, a, f, fric, p_ref)))
+           _jit(jct.fused_stage_derivatives, jm, jc)(
+               *_J(q, v, a, f, fric, p_ref)))
 
 
 def test_friction_cone(models):
     jm, tm, jc, tc = models
     q, _, _, f, _, fric = _inputs(7)
     _close(tfc.residual_and_jac(tm, tc, *_T(q, f, fric)),
-           jfc.residual_and_jac(jm, jc, *_J(q, f, fric)))
+           _jit(jfc.residual_and_jac, jm, jc)(*_J(q, f, fric)))
 
 
 def test_state_equation(models):
@@ -166,7 +174,7 @@ def test_state_equation(models):
     q1 = _inputs(9)[0]
     dt = 0.025
     _close(tse.linearize(tm, *_T(q, v), dt, *_T(q1)),
-           jse.linearize(jm, *_J(q, v), dt, *_J(q1)))
+           _jit(jse.linearize, jm)(*_J(q, v), dt, *_J(q1)))
 
 
 def test_joint_limits(models):

@@ -36,7 +36,7 @@ def lib():
     lib.rtt_host_gemm_537.argtypes = [I, I, P, P, P, P, ctypes.c_double]
     lib.rtt_host_gemv_53.argtypes = [I, P, P, P, P, ctypes.c_double]
     lib.rtt_host_k1.argtypes = [ctypes.c_longlong] + [P] * 12
-    lib.rtt_host_kc.argtypes = [ctypes.c_longlong] + [P] * 6
+    lib.rtt_host_kc.argtypes = [I, ctypes.c_longlong] + [P] * 6
     lib.rtt_host_k2.argtypes = [ctypes.c_longlong] + [P] * 14
     lib.rtt_host_k3.argtypes = [ctypes.c_longlong] + [P] * 15
     lib.rtt_host_riccati_bwd.argtypes = [I, I, I] + [P] * 20
@@ -139,9 +139,25 @@ def test_kc_stage(lib, stage_batch):
     S = x["M"].shape[0]
     ins = [x["dgdq"], x["dgdf"], x["d_cone"]]
     outs = [_empty(S, NV, NV), _empty(S, NV, NF), _empty(S, NF, NF)]
-    assert lib.rtt_host_kc(S, *[_p(t) for t in ins + outs]) == 0
+    assert lib.rtt_host_kc(NC, S, *[_p(t) for t in ins + outs]) == 0
     for got, want in zip(outs, cd.kc_plain(*ins)):
         _rel_close(got, want, name="kc")
+
+
+def test_kc_stage_34_rows(lib):
+    """Kc's 34-row instance (the iCub soles' two 17-row wrench cones) on
+    seeded data: every block nonzero, unlike a surface stack's zero
+    dg/dq. Other row counts are refused."""
+    S, ng = 6, 34
+    rng = np.random.default_rng(34)
+    ins = [torch.as_tensor(rng.standard_normal((S, ng, NV))),
+           torch.as_tensor(rng.standard_normal((S, ng, NF))),
+           torch.as_tensor(rng.uniform(0.1, 2.0, (S, ng)))]
+    outs = [_empty(S, NV, NV), _empty(S, NV, NF), _empty(S, NF, NF)]
+    assert lib.rtt_host_kc(ng, S, *[_p(t) for t in ins + outs]) == 0
+    for got, want in zip(outs, cd.kc_plain(*ins)):
+        _rel_close(got, want, name="kc34")
+    assert lib.rtt_host_kc(17, S, *[_p(t) for t in ins + outs]) == -1
 
 
 def _k2_inputs(x):

@@ -32,11 +32,11 @@ def case():
 def test_com_and_frame_position(case):
     jt, tp = case
     q = torch.as_tensor(anymal_states(tp["model"], 3, 0)[0])
-    ref = jax.vmap(lambda x: jrm.com(jt["model"], x))(q.numpy())
+    ref = jax.jit(jax.vmap(lambda x: jrm.com(jt["model"], x)))(q.numpy())
     assert_close(trm.com(tp["model"], q).numpy(), ref, TOL, "com")
     fid = tp["model"].frame_id("LF_FOOT")
-    ref = jax.vmap(lambda x: jrm.frame_position(jt["model"], fid, x))(
-        q.numpy())
+    ref = jax.jit(jax.vmap(lambda x: jrm.frame_position(
+        jt["model"], fid, x)))(q.numpy())
     assert_close(trm.frame_position(tp["model"], fid, q).numpy(), ref, TOL)
 
 
@@ -46,10 +46,11 @@ def test_step_references(case):
     _, tbr, ttask = tp["costs"]
     ts = np.concatenate([np.asarray(jt["grid"].t),
                          np.linspace(0.0, 1.2, 41)])
-    want = np_tree(jax.vmap(lambda t: task._ref_active(t, jnp.float64))(ts))
+    want = np_tree(jax.jit(jax.vmap(
+        lambda t: task._ref_active(t, jnp.float64)))(ts))
     got = ttask._ref_active(torch.as_tensor(ts))
     close_tree(got, want, 1e-14, "task refs")
-    want = np_tree(jax.vmap(lambda t: br.ref(t)[0])(ts))
+    want = np_tree(jax.jit(jax.vmap(lambda t: br.ref(t)[0]))(ts))
     assert_close(tbr.ref(torch.as_tensor(ts))[0].numpy(), want, 1e-14,
                  "base rotation ref")
 
