@@ -13,7 +13,8 @@ Phases, each of which raises (and so exits non-zero) on failure:
      (standing shapes) and with them (trot shapes); the chain kernel K6
      without the cost fold at the standing shapes and with it at the trot
      shapes; on the stage slots of the iCub walk fleet, K6's surface-contact
-     instance without and with the cost fold and the 34-row Kc. Time kernel,
+     instance without and with the cost fold and the 34-row Kc (also on
+     seeded dense cone rows of the same shapes). Time kernel,
      plain version and library call (float32); count K6's operations on the
      host (csrc/chain_flops.cpp, g++) for its bound;
   3. "slice": the ANYmal standing contact OCP (T 0.5, N 20), B = 128
@@ -38,7 +39,10 @@ Phases, each of which raises (and so exits non-zero) on failure:
      through Kc) warmed in float64 at B = 1 the way the MPC runs (standing
      init, closed-loop updates to mid-gait t = 0.62), then B = 128 float32
      scenarios with perturbed initial states, two updates per MPC step:
-     launch counts, finite KKT, agreement with the plain versions, time per
+     launch counts, finite KKT, agreement with the plain versions (in
+     float64 gated; in float32 reported, and the kernel step's drift from
+     the float64 step gated against the plain float32 steps', then shown
+     with one kernel at a time swapped for its plain version), time per
      MPC step, host time by part and the device idle share;
   7. print the kernels' JSON line, the card line and the final status line.
 """
@@ -54,6 +58,7 @@ import numpy as np
 import torch
 
 from robotoc_tpu_torch import convert, kernels, problems
+from robotoc_tpu_torch.models import contacts as ct
 from robotoc_tpu_torch.models import robot as rm
 from robotoc_tpu_torch.ops import chain as chn
 from robotoc_tpu_torch.ops import condense as cd
@@ -350,6 +355,13 @@ def phase_kernels(dev):
                             pw.costs, solw, gridw, n_imp=pw.mpc.n_reserved,
                             use_chain=False)
     xw = [prew[k].contiguous() for k in ("dgdq", "dgdf", "d_cone")]
+    # the walk's wrench cones act on the local wrench, so its dgdq rows
+    # are zero; seeded dense rows at the same shapes reach every block of
+    # the 34-row Kc
+    rng = np.random.default_rng(5)
+    xr = [torch.as_tensor(rng.standard_normal(tuple(t.shape)),
+                          dtype=torch.float64, device=dev) for t in xw]
+    xr[2] = xr[2].exp()
     Nt = grid64.dt.shape[1]
     recs, extra = {}, {}
     # K6's cases: point contacts without the cost fold (standing) and with
@@ -387,6 +399,8 @@ def phase_kernels(dev):
         ec = _compare("Kc", cd.kc(*kc_in), pc, dtype)
         kcw_in = [t.to(dtype) for t in xw]
         ecw = _compare("Kc 34", cd.kc(*kcw_in), cd.kc_plain(*kcw_in), dtype)
+        kcr_in = [t.to(dtype) for t in xr]
+        _compare("Kc 34 seed", cd.kc(*kcr_in), cd.kc_plain(*kcr_in), dtype)
         d = torch.diag_embed
         k2_in = [p1[3], p1[4], x["Wq"] + d(x["Hq_d"]) + pc[0],
                  x["Wv"] + d(x["Hv_d"]), x["Wu"] + d(x["Hu_d"]),
@@ -475,6 +489,9 @@ def phase_kernels(dev):
                 ratio = (w_val + w_tan) / (n_val + n_tan)
                 print(f"  K6 point fold as written: {w_val} value + {w_tan} "
                       f"tangent operations, {ratio:.1f} x the function's")
+            # R_ref (the last input) is read only by the surface branch
+            read = (args if chn.contact_type(contacts) == ct.SURFACE
+                    else args[:-1])
             rec = _record(
                 "K6 chain" + (" surface" if "surface" in key else ""),
                 "robotoc_tpu_torch/csrc/chain.cu",
@@ -482,7 +499,7 @@ def phase_kernels(dev):
                 cuda_ms(lambda: chn.chain(model, contacts, *args, *cost)),
                 cuda_ms(lambda: chn.chain_plain(model, contacts, *args,
                                                 *cost), reps=3, warmup=1),
-                bound(nbytes(*args, *cost) + nbytes(*got.values()),
+                bound(nbytes(*read, *cost) + nbytes(*got.values()),
                       n_val + n_tan, dtype), None)
             if key == "point fold":
                 recs["K6"] = rec
@@ -562,15 +579,84 @@ def _agree_f64(tag, mk, grid, sol0, q0s, v0s, tol=1e-8):
           + ", ".join(f"{k} {v:.1e}" for k, v in worst.items()))
     check(all(v <= tol for v in worst.values()),
           f"{tag} float64: kernel vs plain past {tol:.0e}: {worst}")
-    return worst
+    return worst, sol_p
 
 
-def _run_path(tag, mk, grid, sol0, q0s, v0s, parts_fn, strict=True,
-              horizon=N):
+def _jittered(sol, rel=1e-6, seed=7):
+    """`sol` with every field but q scaled by 1 + rel N(0, 1) (seeded): a
+    few float32 ulps, the size of the kernels' own rounding."""
+    rng = np.random.default_rng(seed)
+
+    def jit(x):
+        return x * (1 + rel * torch.as_tensor(
+            rng.standard_normal(tuple(x.shape)), dtype=x.dtype,
+            device=x.device))
+
+    return sol.replace(**{n: jit(getattr(sol, n)) for n in FIELDS
+                          if n != "q"})
+
+
+def _drift(name, sol, sol0, sol_64):
+    """Field `name` of `sol` against the float64 step `sol_64` from sol0,
+    relative to the largest change that step made to it."""
+    ref = getattr(sol_64, name)
+    step = max(float((ref - getattr(sol0, name)).abs().max()), 1e-30)
+    return float((getattr(sol, name).double() - ref).abs().max()) / step
+
+
+def _drift_by_kernel(tag, step, sol0, sol_64):
+    """The float32 kernel step (`step()`) with one kernel at a time replaced
+    by its plain version, where its caller looks it up: each field's drift
+    from the float64 step. A single swap that brings a field's drift down
+    to the plain step's points at that kernel's float32 rounding; several
+    such swaps point at the step's sensitivity to any rounding change.
+    Returns {kernel: {field: drift}}."""
+    swaps = {"K1": (cd, "k1", cd.k1_plain), "Kc": (cd, "kc", cd.kc_plain),
+             "K2": (cd, "k2", cd.k2_plain), "K3": (cd, "k3", cd.k3_plain),
+             "K5": (bs, "bwd", bs.bwd_plain),
+             "K6": (chn, "chain", chn.chain_plain)}
+    out = {}
+    for key, (mod, name, plain) in swaps.items():
+        kern = getattr(mod, name)
+        setattr(mod, name, plain)
+        try:
+            sol = step()
+        finally:
+            setattr(mod, name, kern)
+        out[key] = {n: _drift(n, sol, sol0, sol_64) for n in FIELDS}
+        print(f"  {tag} float32 drift with {key} plain: "
+              + ", ".join(f"{n} {v:.1e}" for n, v in out[key].items()))
+    return out
+
+
+def _f32_drift(tag, sol0, steps, sol_64, factor=10.0):
+    """float32 steps against the plain float64 step from the same iterate,
+    each field relative to the largest change the float64 step made.
+    `steps` holds the kernel step ("kernel"), the plain step ("plain") and
+    the plain step from the iterate jittered by `_jittered` ("plain
+    jittered"): the two plain ones show how far float32 rounding alone
+    moves the step. A kernel step that drifts past `factor` times the
+    larger of them is a fault in a kernel's float32 arithmetic: raises.
+    Returns {field: {step: drift}}."""
+    rows = {n: {k: _drift(n, s, sol0, sol_64) for k, s in steps.items()}
+            for n in FIELDS}
+    print(f"  {tag} float32 drift from the float64 step / its change ("
+          + ", ".join(steps) + "): "
+          + ", ".join(f"{n} " + " ".join(f"{v:.1e}" for v in r.values())
+                      for n, r in rows.items()))
+    bad = {n: r for n, r in rows.items()
+           if r["kernel"] > factor * max(r["plain"], r["plain jittered"])}
+    check(not bad, f"{tag}: the float32 kernel step drifts past {factor} x "
+          f"the plain float32 steps' drift: {bad}")
+    return rows
+
+
+def _run_path(tag, mk, grid, sol0, q0s, v0s, parts_fn, strict=True):
     """Drive one path: warm-up, counts reset, one MPC step through the
     kernels, counts read; the same step on the plain versions; timings.
     With strict False a missed float32 agreement gate is returned in the
-    result ("f32_gates_missed") for the caller to settle."""
+    result ("f32_gates_missed") for the caller to settle. Returns the
+    launch counts, the result and the two steps' (sol, kkts)."""
     s_kern, s_plain = mk(True), mk(False)
     _mpc_step(s_kern, grid, sol0, q0s, v0s)            # warm-up
     torch.cuda.synchronize()
@@ -594,7 +680,7 @@ def _run_path(tag, mk, grid, sol0, q0s, v0s, parts_fn, strict=True,
                                               v0s))
     parts = parts_fn()
     dev_ms, top = device_time(lambda: s_kern.update(grid, q0s, v0s, sol0))
-    out = dict(B=B, N=horizon, dtype="float32", ms_per_mpc_step=step_ms,
+    out = dict(B=B, N=s_kern.N, dtype="float32", ms_per_mpc_step=step_ms,
                mpc_updates_per_s=B / (step_ms * 1e-3),
                plain_ms_per_mpc_step=step_plain_ms,
                ms_per_update_parts=parts, device_ms_per_update=dev_ms,
@@ -611,7 +697,7 @@ def _run_path(tag, mk, grid, sol0, q0s, v0s, parts_fn, strict=True,
     print(f"  {tag}: device time per update {dev_ms} ms (profiler), idle "
           f"share {out['device_idle_share']}; top kernels {top}")
     print(f"{tag}: " + json.dumps(out))
-    return launches, out
+    return launches, out, (out_k, out_p)
 
 
 def _parts(model, contacts, limits, costs, sol_b, grid_b, q_b, v_b,
@@ -671,11 +757,10 @@ def phase_trot(dev):
                                 switching_constraints=True, use_kernels=k))
 
     sol_b, grid_b, q_b, v_b, _ = OS._fleet(sol0, p.grid, q0s, v0s)
-    launches, out = _run_path("trot", mk, p.grid, sol0, q0s, v0s,
-                              lambda: _parts(
-                                  p.model, mpc.contacts, mpc.limits, p.costs,
-                                  sol_b, grid_b, q_b, v_b, n_imp, True,
-                                  True))
+    launches, out, _ = _run_path(
+        "trot", mk, p.grid, sol0, q0s, v0s, lambda: _parts(
+            p.model, mpc.contacts, mpc.limits, p.costs, sol_b, grid_b, q_b,
+            v_b, n_imp, True, True))
     # float64, one unperturbed scenario, 15 updates through the kernels
     p64 = problems.anymal_trot(N=N, dtype=torch.float64, device=dev)
     sol = p64.solver.init_solution(p64.grid, p64.q0, p64.v0)
@@ -780,16 +865,23 @@ def phase_walk(dev):
 
     model, (contacts, limits, costs, grid, _), sol0, q0s, v0s, mk = fleet(f32)
     sol_b, grid_b, q_b, v_b, _ = OS._fleet(sol0, grid, q0s, v0s)
-    launches, out = _run_path("walk", mk, grid, sol0, q0s, v0s,
-                              lambda: _parts(
-                                  model, contacts, limits, costs, sol_b,
-                                  grid_b, q_b, v_b, mpc.n_reserved, True,
-                                  True), strict=False, horizon=WALK_N)
+    launches, out, (out_k, out_p) = _run_path(
+        "walk", mk, grid, sol0, q0s, v0s, lambda: _parts(
+            model, contacts, limits, costs, sol_b, grid_b, q_b, v_b,
+            mpc.n_reserved, True, True), strict=False)
     # kernels against plain versions in float64 on the same fleet; the
-    # float32 gate of the trot is reported beside it
+    # float32 gate of the trot is reported beside it, and the float32
+    # steps' drift from the float64 one is gated
     _, (_, _, _, grid64, _), sol64, q64, v64, mk64 = fleet(f64)
-    out["f64_agreement"] = _agree_f64("walk", mk64, grid64, sol64, q64,
-                                      v64)
+    out["f64_agreement"], sol_p64 = _agree_f64("walk", mk64, grid64, sol64,
+                                               q64, v64)
+    sol_j = _mpc_step(mk(False), grid, _jittered(sol0), q0s, v0s)[0]
+    out["f32_drift"] = _f32_drift("walk", sol64, {
+        "kernel": out_k[0], "plain": out_p[0], "plain jittered": sol_j},
+        sol_p64)
+    out["f32_drift_by_kernel"] = _drift_by_kernel(
+        "walk", lambda: _mpc_step(mk(True), grid, sol0, q0s, v0s)[0], sol64,
+        sol_p64)
     if out["f32_gates_missed"]:
         print("  walk: float32 gates missed (reported, float64 gate holds): "
               + "; ".join(out["f32_gates_missed"]))

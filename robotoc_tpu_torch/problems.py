@@ -193,15 +193,14 @@ def icub_walk(N: int = 25, T: float = 0.7, dtype=torch.float64,
                        costs=costs, q0=q0, v0=v0, T=T, N=N)
 
 
-def walk_warm_start(p: GaitProblem, t_target: float = 0.62,
-                    control_dt: float = 0.005, init_iters: int = 40):
+def walk_warm_start(p: GaitProblem, t_target: float, control_dt: float):
     """Warm the walk's iterate the way the MPC runs: `init` at standing
-    double support (init_iters updates), then closed-loop MPC updates
-    (two each) every control_dt up to t_target, the state moved by the
-    plan's first velocity and acceleration. Returns (t, q, v) reached;
-    p.mpc then holds the grid, cost stack and iterate at t."""
+    double support (40 updates), then closed-loop MPC updates (two each)
+    every control_dt up to t_target, the state moved by the plan's first
+    velocity and acceleration. Returns (t, q, v) reached; p.mpc then holds
+    the grid, cost stack and iterate at t."""
     mpc, m = p.mpc, p.model
-    mpc.init(0.0, p.q0, p.v0, num_iters=init_iters)
+    mpc.init(0.0, p.q0, p.v0, num_iters=40)
     t, q, v = 0.0, p.q0, p.v0
     while t < t_target - 1e-9:
         mpc.update_solution(t, control_dt, q, v, max_iter=2)

@@ -7,7 +7,8 @@ that machine need not have, hence --noconftest):
         tests/test_torch_cuda.py
 
 Each wrapper is held against its plain version on the same CUDA tensors
-in float64 (1e-10 relative to each output's max-abs), the wrappers refuse
+in float64 (1e-10 relative to each output's max-abs; the 34-row Kc on
+dense rows also in float32, 1e-4), the wrappers refuse
 inputs their kernels do not take, and one Newton update of a small fleet
 on the card matches the same update on the CPU, for the standing problem,
 for the trot (impact slots, switching rows, the chain kernel K6 with the
@@ -149,6 +150,21 @@ def test_kc_34_rows_matches_plain(dev):
     assert args[2].shape[-1] == 34
     cd.kc.launches = 0
     _close(cd.kc(*args), cd.kc_plain(*args))
+    assert cd.kc.launches == 1
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float64, 1e-10),
+                                       (torch.float32, 1e-4)])
+def test_kc_34_rows_dense_matches_plain(dev, dtype, tol):
+    """Kc at 34 rows on seeded dense rows (the walk's own dgdq rows are
+    zero) at the walk fleet's 128 x 28 stage slots."""
+    rng = np.random.default_rng(5)
+    S = 128 * 28
+    args = [torch.as_tensor(x, dtype=dtype, device=dev) for x in (
+        rng.standard_normal((S, 34, 18)), rng.standard_normal((S, 34, 12)),
+        np.exp(rng.standard_normal((S, 34))))]
+    cd.kc.launches = 0
+    _close(cd.kc(*args), cd.kc_plain(*args), tol)
     assert cd.kc.launches == 1
 
 
