@@ -14,8 +14,9 @@ Phases, each of which raises (and so exits non-zero) on failure:
      without the cost fold at the standing shapes and with it at the trot
      shapes; on the stage slots of the iCub walk fleet, K6's surface-contact
      instance without and with the cost fold and the 34-row Kc (also on
-     seeded dense cone rows of the same shapes). Time kernel,
-     plain version and library call (float32); count K6's operations on the
+     seeded dense cone rows of the same shapes). Time kernel and library
+     call by device time (the profiler), the plain version and one
+     wrapper call by CUDA events (float32); count K6's operations on the
      host (csrc/chain_flops.cpp, g++) for its bound;
   3. "slice": the ANYmal standing contact OCP (T 0.5, N 20), B = 128
      scenarios with perturbed initial configurations, float32, two updates
@@ -45,6 +46,12 @@ Phases, each of which raises (and so exits non-zero) on failure:
      with one kernel at a time swapped for its plain version), time per
      MPC step, host time by part and the device idle share;
   7. print the kernels' JSON line, the card line and the final status line.
+
+    python3 chip_smoke.py --pair <tree> <phase,...> <out_dir>
+
+runs the phases named on the package of another tree (a checkout of
+another commit) and on this one in turns, on one card, each run's output
+in <out_dir> (see `pair`).
 """
 import dataclasses
 import json
@@ -79,6 +86,9 @@ ALL_PHASES = ("build", "kernels", "slice", "trot", "golden", "walk")
 WALK_N, WALK_T, WALK_DT = 25, 0.62, 0.02
 FIELDS = ("q", "v", "a", "u", "f", "lmd", "gmm", "beta", "mu", "s_lim",
           "z_lim", "s_cone", "z_cone")
+# what each time of a kernel's record measures
+CLOCK = {"ms": "device", "library_ms": "device", "call_ms": "events",
+         "plain_ms": "events"}
 
 
 def check(cond, msg):
@@ -108,6 +118,31 @@ def cuda_ms(fn, reps=20, warmup=3):
         end.synchronize()
         times.append(start.elapsed_time(end))
     return float(np.median(times))
+
+
+def kernel_ms(fn, reps=20, warmup=3):
+    """Device time of the kernels one call of `fn` launches, by the
+    profiler's CUDA activity: median over `reps` calls of their sum. CUDA
+    events around one call (cuda_ms) also hold the wrapper's host time
+    when the card waits for it; this does not."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    times = [e.time_range.elapsed_us() / 1e3 for e in prof.events()
+             if e.device_type == DeviceType.CUDA]
+    check(times, "kernel_ms: the profiler recorded no device activity")
+    if len(times) % reps == 0:   # the same kernels each call, in order
+        per = len(times) // reps
+        return float(np.median([sum(times[i:i + per])
+                                for i in range(0, len(times), per)]))
+    return sum(times) / reps
 
 
 def host_ms(fn, reps=5):
@@ -289,7 +324,8 @@ def phase_build():
     secs = time.perf_counter() - t0
     for name, (_, log) in built.items():
         for line in log.splitlines():
-            if "registers" in line or "spill" in line:
+            if ("registers" in line or "spill" in line
+                    or "Compiling entry function" in line):
                 print(f"  {name}: {line.strip()}")
     print(f"build: {sorted(built)} in {secs:.1f} s (nvcc, one process per "
           "source, in parallel; full logs beside the libraries in "
@@ -318,10 +354,18 @@ def _compare(name, kern_out, plain_out, dtype):
     return worst
 
 
-def _record(name, source, replaces, err, ms, plain_ms, b, library_ms):
+def _record(name, source, replaces, err, kern, plain, b, lib=None,
+            plain_reps=5):
+    """A kernel's record, timed in float32: `ms` and `library_ms` by device
+    time (kernel_ms, the profiler), `call_ms` (one call of the wrapper) and
+    `plain_ms` (one call of the plain version) by CUDA events, host time
+    included. `clock` says which."""
     return dict(name=name, route="cuda", source=source, replaces=replaces,
-                launches=None, max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                bound_ms=b[0], bound_by=b[1], library_ms=library_ms)
+                launches=None, max_abs_err=err, ms=kernel_ms(kern),
+                plain_ms=cuda_ms(plain, reps=plain_reps, warmup=1),
+                bound_ms=b[0], bound_by=b[1],
+                library_ms=None if lib is None else kernel_ms(lib),
+                call_ms=cuda_ms(kern), clock=CLOCK)
 
 
 def _op_counts(pool, model, contacts, args, cost, as_written=False,
@@ -460,10 +504,8 @@ def phase_kernels(dev):
             outs = kern(*args)
             recs[key] = _record(
                 name, "robotoc_tpu_torch/csrc/condense.cu", repl, err,
-                cuda_ms(lambda: kern(*args)),
-                cuda_ms(lambda: plain(*args), reps=5),
-                bound(nbytes(*args) + nbytes(*outs), flops, dtype),
-                cuda_ms(lib) if lib is not None else None)
+                lambda: kern(*args), lambda: plain(*args),
+                bound(nbytes(*args) + nbytes(*outs), flops, dtype), lib)
         # K5: the main path's switching branch at the trot shapes; the
         # nf = 0 branch (standing path) beside it
         for nf, l_in, err, Nh in ((12, l12, e512, Nt), (0, l0, e50, N)):
@@ -471,10 +513,9 @@ def phase_kernels(dev):
             rec = _record(
                 "K5 riccati_bwd", "robotoc_tpu_torch/csrc/riccati_bwd.cu",
                 "robotoc_tpu/riccati/pallas_scan.py:146", err,
-                cuda_ms(lambda: bs.bwd(*l_in)),
-                cuda_ms(lambda: bs.bwd_plain(*l_in), reps=5),
+                lambda: bs.bwd(*l_in), lambda: bs.bwd_plain(*l_in),
                 bound(nbytes(*l_in) + nbytes(*outs),
-                      B * Nh * flops_k5_step(36, 12, nf), dtype), None)
+                      B * Nh * flops_k5_step(36, 12, nf), dtype))
             if nf:
                 recs["K5"] = rec
             else:
@@ -496,11 +537,10 @@ def phase_kernels(dev):
                 "K6 chain" + (" surface" if "surface" in key else ""),
                 "robotoc_tpu_torch/csrc/chain.cu",
                 "robotoc_tpu/ops/pallas_chain.py:1110", err,
-                cuda_ms(lambda: chn.chain(model, contacts, *args, *cost)),
-                cuda_ms(lambda: chn.chain_plain(model, contacts, *args,
-                                                *cost), reps=3, warmup=1),
+                lambda: chn.chain(model, contacts, *args, *cost),
+                lambda: chn.chain_plain(model, contacts, *args, *cost),
                 bound(nbytes(*read, *cost) + nbytes(*got.values()),
-                      n_val + n_tan, dtype), None)
+                      n_val + n_tan, dtype), plain_reps=3)
             if key == "point fold":
                 recs["K6"] = rec
             elif key == "surface fold":
@@ -510,7 +550,8 @@ def phase_kernels(dev):
             else:
                 extra["K6 surface cost=0 (walk stages, 3584)"] = rec
     for r in list(recs.values()) + list(extra.values()):
-        print(f"  {r['name']:24s} {r['ms']:.4f} ms  plain {r['plain_ms']:.3f}"
+        print(f"  {r['name']:24s} {r['ms']:.4f} ms (a call {r['call_ms']:.4f})"
+              f"  plain (a call) {r['plain_ms']:.3f}"
               f" ms  bound {r['bound_ms']:.4f} ms ({r['bound_by']})"
               f"  library {r['library_ms']}")
     print("kernels_extra: " + json.dumps(extra))
@@ -891,6 +932,52 @@ def phase_walk(dev):
     return launches, out
 
 
+def _summary(out):
+    """K5/K6 times (ms) and ms per MPC step from one run's output."""
+    row = {}
+    for line in out.splitlines():
+        if line.startswith('{"kernels"'):
+            for r in json.loads(line)["kernels"]:
+                if r["name"].startswith(("K5", "K6")):
+                    key = "K5 sw" if r["name"].startswith("K5") else (
+                        "K6 surface fold" if "surface" in r["name"]
+                        else "K6 point fold")
+                    row[key] = r["ms"]
+        elif line.startswith("kernels_extra: "):
+            for k, r in json.loads(line[len("kernels_extra: "):]).items():
+                row[k.split(" (")[0]] = r["ms"]
+        for tag in ("slice", "trot", "walk"):
+            if line.startswith(tag + ": {"):
+                row[tag + " ms/step"] = json.loads(
+                    line[len(tag) + 2:])["ms_per_mpc_step"]
+    return row
+
+
+def pair(other, phases, out_dir):
+    """Run `phases` of this script on the package of the tree at `other`
+    and on this tree's in turns (other, this, this, other) on this card,
+    each in its own process, so that both are measured the same way; each
+    run's output goes to <out_dir>/pair_<i>.txt. Prints the K5/K6 times
+    and ms per MPC step of each run; returns non-zero if a run failed."""
+    os.makedirs(out_dir, exist_ok=True)
+    rc = 0
+    for i, tree in enumerate((other, ROOT, ROOT, other)):
+        code = (f"import runpy, sys; sys.path[:0] = [{tree!r}]; "
+                f"g = runpy.run_path({os.path.abspath(__file__)!r}); "
+                f"sys.exit(g['main'](phases={tuple(phases)!r}))")
+        t0 = time.perf_counter()
+        run = subprocess.run([sys.executable, "-c", code], cwd=tree,
+                             capture_output=True, text=True)
+        with open(os.path.join(out_dir, f"pair_{i}.txt"), "w") as fh:
+            fh.write(run.stdout + run.stderr)
+        tag = "parent" if tree == other else "change"
+        print(f"pair run {i} ({tag}, {tree}): rc {run.returncode}, "
+              f"{time.perf_counter() - t0:.1f} s: "
+              + json.dumps(_summary(run.stdout)), flush=True)
+        rc = rc or run.returncode
+    return rc
+
+
 def main(phases=ALL_PHASES):
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this script "
@@ -932,4 +1019,9 @@ def main(phases=ALL_PHASES):
 
 
 if __name__ == "__main__":
+    # python3 chip_smoke.py --pair <tree> <phase,...> <out_dir>: that tree
+    # and this one in turns on one card (see `pair`)
+    if len(sys.argv) == 5 and sys.argv[1] == "--pair":
+        sys.exit(pair(os.path.abspath(sys.argv[2]), sys.argv[3].split(","),
+                      os.path.abspath(sys.argv[4])))
     sys.exit(main())

@@ -33,8 +33,8 @@
 // 23 times that arithmetic (the recomputed values and the zero tangents),
 // and it is latency-bound besides: a stage's 54 columns fill under two
 // warps and the levels are barriers. Making it fast (values once per
-// level, the zero tangents skipped, several stages per block) is later
-// work.
+// level, the zero tangents skipped, several stages per block) is queued
+// in ROADMAP.md under K6.
 //
 // The surface branch adds per contact 6 Baumgarte rows (3 for a point) and
 // 17 cone rows (5); its cone rows take no tangents (the wrench cone acts on

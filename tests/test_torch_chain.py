@@ -174,17 +174,26 @@ def _check_host_build(case, host, with_cost):
         _close(got[name].numpy(), want[name].numpy(), 1e-12, name)
 
 
-def _check_op_count(case):
+# (value, tangent) operations of K6's function on each case's stage slots,
+# without and with the cost fold: the counts K6's bound has been computed
+# from since csrc/chain_flops.cpp was written
+OP_COUNTS = {"point": {False: (63630, 478534), True: (76272, 628978)},
+             "surface": {False: (55035, 564165), True: (62838, 652455)}}
+
+
+def _check_op_count(case, pinned):
     """K6's operation count (csrc/chain_flops.cpp, the roofline bound's
-    numerator): additive over stages, larger with the cost fold, below
-    what charging every tangent column the stage's value arithmetic would
-    give, and below the count of the kernel's own arithmetic."""
+    numerator): the pinned numbers, additive over stages, larger with the
+    cost fold, below what charging every tangent column the stage's value
+    arithmetic would give, and below the count of the kernel's own
+    arithmetic."""
     tp = case["tp"]
     ins = [torch.as_tensor(x) for x in case["ins"]]
     counts = {}
     for with_cost in (False, True):
         cost = case["cost_t"] if with_cost else ()
         val, tan = chn.op_count(tp["model"], tp["contacts"], *ins, *cost)
+        assert (val, tan) == pinned[with_cost]
         h = ins[0].shape[0] // 2
         parts = [chn.op_count(tp["model"], tp["contacts"],
                               *[x[sl] for x in ins + list(cost)])
@@ -227,7 +236,7 @@ def test_host_build_matches_chain_plain(case, host, with_cost):
 @pytest.mark.skipif(shutil.which("g++") is None, reason="g++ is not "
                     "installed")
 def test_op_count_charges_values_once(case):
-    _check_op_count(case)
+    _check_op_count(case, OP_COUNTS["point"])
 
 
 # ---- surface contacts (the iCub soles) --------------------------------
@@ -256,7 +265,7 @@ def test_surface_host_build_matches_chain_plain(surface_case, host,
 @pytest.mark.skipif(shutil.which("g++") is None, reason="g++ is not "
                     "installed")
 def test_op_count_surface(surface_case):
-    _check_op_count(surface_case)
+    _check_op_count(surface_case, OP_COUNTS["surface"])
 
 
 def test_use_chain_needs_the_kernels(case):

@@ -18,7 +18,7 @@ import numpy as np
 import pytest
 import torch
 
-from robotoc_tpu_torch import problems
+from robotoc_tpu_torch import convert, problems
 from robotoc_tpu_torch.models import robot as rm
 from robotoc_tpu_torch.ops import chain as chn
 from robotoc_tpu_torch.ops import condense as cd
@@ -72,9 +72,21 @@ def test_condense_kernels_match_plain(dev):
 
 @pytest.mark.parametrize("nf", [0, 12])
 def test_bwd_kernel_matches_plain(dev, nf):
+    """At the standing path's 128 x 20, and at B = 3 scenarios of N = 1
+    step (no step fetched ahead) in float64 and float32."""
     import chip_smoke
     args = chip_smoke.lqr_inputs(nf, torch.float64, dev, chip_smoke.N)
     _close(bs.bwd(*args), bs.bwd_plain(*args))
+    # per-step fields (B, N, ...) keep their last step; QxxN, lxN (8, 9)
+    # are per scenario
+    small = [None if x is None else
+             (x[:3] if i in (8, 9) else x[:3, -1:]).contiguous()
+             for i, x in enumerate(args)]
+    for dtype, tol in ((torch.float64, 1e-10), (torch.float32, 1e-4)):
+        a = [None if x is None else x.to(dtype) for x in small]
+        bs.bwd.launches = 0
+        _close(bs.bwd(*a), bs.bwd_plain(*a), tol)
+        assert bs.bwd.launches == 1
 
 
 def test_wrappers_refuse_what_the_kernels_do_not_take(dev):
@@ -122,6 +134,15 @@ def test_chain_kernel_matches_plain(dev, with_cost, make, t0):
     assert chn.chain.launches == 1
     names = chn._OUTS + (chn._COST_OUTS if with_cost else ())
     _close([got[n] for n in names], [want[n] for n in names])
+    # 1, 3 and 7 stages, float64 and float32
+    for dtype, tol in ((torch.float64, 1e-10), (torch.float32, 1e-4)):
+        model = convert.astype(p.model, dtype)
+        contacts = convert.astype(p.mpc.contacts, dtype)
+        for S in (1, 3, 7):
+            a = [x[-S:].to(dtype).contiguous() for x in args + list(cost)]
+            got = chn.chain(model, contacts, *a)
+            want = chn.chain_plain(model, contacts, *a)
+            _close([got[n] for n in names], [want[n] for n in names], tol)
 
 
 def test_trot_update_on_card_matches_cpu(dev):

@@ -201,7 +201,14 @@ def test_k3_stage(lib, stage_batch):
 
 @pytest.mark.parametrize("nf", [0, 12])
 def test_riccati_bwd(lib, nf):
-    f = _lqr_fields(nf, seed=nf + 5)
+    """Also at B = 3 scenarios of one step: only the first step's inputs
+    are fetched, and B N = 3 fills no product tile."""
+    for Bn, N in ((2, 3), (3, 1)):
+        _check_riccati_bwd(lib, nf, _lqr_fields(nf, seed=nf + 5, Bn=Bn,
+                                                N=N))
+
+
+def _check_riccati_bwd(lib, nf, f):
     Bn, N = f["A"].shape[0], f["A"].shape[1]
     names = ("A", "B", "xres", "Qxx", "Qxu", "Quu", "lx", "lu")
     sw_names = ("Phix", "Phiu", "Pc", "sw")
