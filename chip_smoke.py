@@ -14,10 +14,11 @@ Phases, each of which raises (and so exits non-zero) on failure:
      without the cost fold at the standing shapes and with it at the trot
      shapes; on the stage slots of the iCub walk fleet, K6's surface-contact
      instance without and with the cost fold and the 34-row Kc (also on
-     seeded dense cone rows of the same shapes). Time kernel and library
-     call by device time (the profiler), the plain version and one
-     wrapper call by CUDA events (float32); count K6's operations on the
-     host (csrc/chain_flops.cpp, g++) for its bound;
+     seeded dense cone rows of the same shapes); K6 on the full iCub's
+     nv 35 tree on seeded stages, without and with the fold. Time kernel
+     and library call by device time (the profiler), the plain version and
+     one wrapper call by CUDA events (float32); count K6's operations on
+     the host (csrc/chain_flops.cpp, g++) for its bound;
   3. "slice": the ANYmal standing contact OCP (T 0.5, N 20), B = 128
      scenarios with perturbed initial configurations, float32, two updates
      per MPC step through OCPSolver.update with the kernels (K6 without the
@@ -26,10 +27,19 @@ Phases, each of which raises (and so exits non-zero) on failure:
   4. "trot": the main path, the mid-gait ANYmal trot MPC update (T 0.5,
      N 20, 4 impact slots, switching constraints, the gait cost stack
      folded into K6), B = 128, float32, two updates per MPC step; launch
-     counts of all six kernels, finite KKT, agreement with the plain
-     versions, time per MPC step, host time by part and the device idle
-     share; then float64, one unperturbed scenario, 15 updates through the
-     kernels, ending at KKT < 1e-3;
+     counts of all six kernels, finite KKT, the KKT within 1e-3 of the
+     plain step's; the same MPC step of a B = 128 float64 fleet built the
+     same way through the kernels against the plain versions (1e-8 of each
+     field's max-abs), and the next one from its iterate rounded to float32
+     (`on_sphere`); each field's float32 drift from that float64 step
+     within TROT_K times the largest drift of the plain float32 steps (from
+     the iterate and from two jittered copies); twelve float32 faults
+     planted one at a time in one kernel's outputs, each of which the drift
+     gate must refuse where the old agreement with the plain step (1e-2 of
+     the step, printed, not gated) refuses it, and the noise plants at
+     1e-5 and 1e-6, printed only; time per MPC step, host time
+     by part and the device idle share; then float64, one unperturbed
+     scenario, 15 updates through the kernels, ending at KKT < 1e-3;
   5. "golden": float64, one standing scenario, 16 updates through the
      kernels: reproduce tests/golden/anymal_standing_ocp.npz to 1e-6 with
      KKT below 1e-6;
@@ -46,6 +56,10 @@ Phases, each of which raises (and so exits non-zero) on failure:
      with one kernel at a time swapped for its plain version), time per
      MPC step, host time by part and the device idle share;
   7. print the kernels' JSON line, the card line and the final status line.
+The phase "readings" (not a default phase) prints the trot gate's readings
+on three fleet seeds and two iterates with the planted faults' on each,
+and at the later iterate where the float64 difference off the unit
+quaternion sphere comes from (`phase_readings`).
 
     python3 chip_smoke.py --pair <tree> <phase,...> <out_dir>
 
@@ -53,6 +67,7 @@ runs the phases named on the package of another tree (a checkout of
 another commit) and on this one in turns, on one card, each run's output
 in <out_dir> (see `pair`).
 """
+import contextlib
 import dataclasses
 import json
 import os
@@ -81,11 +96,30 @@ PEAK_FLOPS = {torch.float32: 67e12, torch.float64: 34e12}
 # kernel vs plain version, relative to each output's largest magnitude
 TOL = {torch.float64: 1e-10, torch.float32: 1e-4}
 ALL_PHASES = ("build", "kernels", "slice", "trot", "golden", "walk")
+# the trot's float32 gate: each field's drift from the float64 step at most
+# TROT_K times the largest drift among the plain float32 step and the plain
+# steps from iterates jittered with these seeds: the largest round factor
+# at which the gate, with the KKT's, refuses every planted fault that the
+# old agreement refuses on the readings (PERF.md, section 6)
+TROT_K = 7.0
+JITTER_SEEDS = (7, 11)
+# the faults planted in one kernel at a time to show the gate's power: the
+# relative noise whose refusal is gated, and the sizes only printed
+PLANT_EPS, PLANT_EPS_SHOWN = 1e-4, (1e-5, 1e-6)
 # the walk's closed-loop warm start: control step (the JAX package's bench
 # takes 0.005 s; 0.02 s reaches mid-gait in a quarter of the updates)
 WALK_N, WALK_T, WALK_DT = 25, 0.62, 0.02
 FIELDS = ("q", "v", "a", "u", "f", "lmd", "gmm", "beta", "mu", "s_lim",
           "z_lim", "s_cone", "z_cone")
+# K6's records: (key in the kernels line, name) of each case; the full
+# iCub's nv 35 instance runs on this many seeded stages (no path runs it)
+K6_RECORDS = {"point fold": ("K6", "K6 chain"),
+              "point": ("K6 nofold", "K6 chain no fold"),
+              "surface fold": ("K6s", "K6 chain surface"),
+              "surface": ("K6s nofold", "K6 chain surface no fold"),
+              "nv35 fold": ("K6 nv35", "K6 chain surface nv35"),
+              "nv35": ("K6 nv35 nofold", "K6 chain surface nv35 no fold")}
+K6_NV35_STAGES = 1024
 # what each time of a kernel's record measures
 CLOCK = {"ms": "device", "library_ms": "device", "call_ms": "events",
          "plain_ms": "events"}
@@ -368,15 +402,13 @@ def _record(name, source, replaces, err, kern, plain, b, lib=None,
                 call_ms=cuda_ms(kern), clock=CLOCK)
 
 
-def _op_counts(pool, model, contacts, args, cost, as_written=False,
-               chunk=256):
+def _op_counts(pool, model, contacts, args, cost, chunk=256):
     """K6's operation count (ops/chain.op_count) of these stages, in chunks
     on the host thread pool (ctypes releases the GIL; the count adds over
     stages). Returns a function that waits for (value, tangent)."""
     ins = [x.cpu() for x in list(args) + list(cost)]
     parts = [pool.submit(chn.op_count, model, contacts,
-                         *[x[i:i + chunk] for x in ins],
-                         as_written=as_written)
+                         *[x[i:i + chunk] for x in ins])
              for i in range(0, ins[0].shape[0], chunk)]
     return lambda: tuple(map(sum, zip(*[f.result() for f in parts])))
 
@@ -407,30 +439,32 @@ def phase_kernels(dev):
                           dtype=torch.float64, device=dev) for t in xw]
     xr[2] = xr[2].exp()
     Nt = grid64.dt.shape[1]
-    recs, extra = {}, {}
-    # K6's cases: point contacts without the cost fold (standing) and with
-    # it (trot); surface contacts without it (the biped standing stack)
-    # and with it (walk), both on the walk fleet's stage slots
+    recs = {}
+    # K6's cases, (model, contacts, args, cost) in float64: point contacts
+    # without the cost fold (standing) and with it (trot); surface contacts
+    # without it (the biped standing stack) and with it (walk), both on the
+    # walk fleet's stage slots; the full iCub's nv 35 tree on seeded stages
+    # (no path runs it; absent from packages without it)
     k6_cases = {
-        "point": (ps.model, ps.contacts, (ps.cost,), sol_s, grid_s, False),
-        "point fold": (p64.model, p64.mpc.contacts, p64.costs, sol64,
-                       grid64, True),
-        "surface": (pw.model, pw.mpc.contacts, pw.costs, solw, gridw,
-                    False),
-        "surface fold": (pw.model, pw.mpc.contacts, pw.costs, solw, gridw,
-                         True)}
+        "point": (ps.model, ps.contacts) + chain_args(
+            ps.model, ps.contacts, (ps.cost,), sol_s, grid_s, False),
+        "point fold": (p64.model, p64.mpc.contacts) + chain_args(
+            p64.model, p64.mpc.contacts, p64.costs, sol64, grid64, True),
+        "surface": (pw.model, pw.mpc.contacts) + chain_args(
+            pw.model, pw.mpc.contacts, pw.costs, solw, gridw, False),
+        "surface fold": (pw.model, pw.mpc.contacts) + chain_args(
+            pw.model, pw.mpc.contacts, pw.costs, solw, gridw, True)}
+    if hasattr(problems, "icub_soles"):
+        m35, c35 = problems.icub_soles(device=dev)
+        for key, wc in (("nv35", False), ("nv35 fold", True)):
+            k6_cases[key] = (m35, c35) + tuple(problems.chain_stages(
+                m35, c35, K6_NV35_STAGES, seed=6, with_cost=wc))
     # K6's operation counts, on the host beside the card's work: (value,
-    # tangent) operations over all stages and, on the trot, the arithmetic
-    # the kernel as written does
+    # tangent) operations over all stages
     kernels.host_library("chain_flops")
     pool = ThreadPoolExecutor(6)
-    k6_ops = {}
-    for key, (mo, cts, costs, sb, gb, wc) in k6_cases.items():
-        args, cost = chain_args(mo, cts, costs, sb, gb, wc)
-        k6_ops[key] = _op_counts(pool, mo, cts, args, cost)
-        if key == "point fold":
-            k6_written = _op_counts(pool, mo, cts, args, cost,
-                                    as_written=True)
+    k6_ops = {key: _op_counts(pool, mo, cts, args, cost)
+              for key, (mo, cts, args, cost) in k6_cases.items()}
     pool.shutdown(wait=False)
     for dtype in (torch.float64, torch.float32):
         x = {k: v.to(dtype) for k, v in x64.items()}
@@ -462,13 +496,12 @@ def phase_kernels(dev):
         l12 = lqr_inputs(12, dtype, dev, Nt)
         e512 = _compare("K5 nf=12", bs.bwd(*l12), bs.bwd_plain(*l12), dtype)
         k6 = {}
-        for key, (mo, cts, costs, sb, gb, wc) in k6_cases.items():
-            args, cost = chain_args(mo, cts, costs, sb, gb, wc)
+        for key, (mo, cts, args, cost) in k6_cases.items():
             args = [a.to(dtype) for a in args]
             cost = [c.to(dtype).contiguous() for c in cost]
             model = convert.astype(mo, dtype)
             contacts = convert.astype(cts, dtype)
-            names = chn._OUTS + (chn._COST_OUTS if wc else ())
+            names = chn._OUTS + (chn._COST_OUTS if cost else ())
             got = chn.chain(model, contacts, *args, *cost)
             want = chn.chain_plain(model, contacts, *args, *cost)
             err = _compare(f"K6 {key}", [got[n] for n in names],
@@ -510,51 +543,33 @@ def phase_kernels(dev):
         # nf = 0 branch (standing path) beside it
         for nf, l_in, err, Nh in ((12, l12, e512, Nt), (0, l0, e50, N)):
             outs = bs.bwd(*l_in)
-            rec = _record(
-                "K5 riccati_bwd", "robotoc_tpu_torch/csrc/riccati_bwd.cu",
+            recs["K5" if nf else "K5 nf0"] = _record(
+                "K5 riccati_bwd" + ("" if nf else " nf=0"),
+                "robotoc_tpu_torch/csrc/riccati_bwd.cu",
                 "robotoc_tpu/riccati/pallas_scan.py:146", err,
                 lambda: bs.bwd(*l_in), lambda: bs.bwd_plain(*l_in),
                 bound(nbytes(*l_in) + nbytes(*outs),
                       B * Nh * flops_k5_step(36, 12, nf), dtype))
-            if nf:
-                recs["K5"] = rec
-            else:
-                extra["K5 nf=0 (standing, N=20)"] = rec
-        for key in ("point fold", "point", "surface fold", "surface"):
-            model, contacts, args, cost, got, err = k6[key]
+        for key, (model, contacts, args, cost, got, err) in k6.items():
             n_val, n_tan = k6_ops[key]()
             print(f"  K6 {key}: {args[0].shape[0]} stages, {n_val} value + "
                   f"{n_tan} tangent operations (csrc/chain_flops.cpp)")
-            if key == "point fold":
-                w_val, w_tan = k6_written()
-                ratio = (w_val + w_tan) / (n_val + n_tan)
-                print(f"  K6 point fold as written: {w_val} value + {w_tan} "
-                      f"tangent operations, {ratio:.1f} x the function's")
             # R_ref (the last input) is read only by the surface branch
             read = (args if chn.contact_type(contacts) == ct.SURFACE
                     else args[:-1])
-            rec = _record(
-                "K6 chain" + (" surface" if "surface" in key else ""),
-                "robotoc_tpu_torch/csrc/chain.cu",
+            recs[K6_RECORDS[key][0]] = _record(
+                K6_RECORDS[key][1], "robotoc_tpu_torch/csrc/" + (
+                    "chain_icub.cu" if key.startswith("nv35") else "chain.cu"),
                 "robotoc_tpu/ops/pallas_chain.py:1110", err,
                 lambda: chn.chain(model, contacts, *args, *cost),
                 lambda: chn.chain_plain(model, contacts, *args, *cost),
                 bound(nbytes(*read, *cost) + nbytes(*got.values()),
                       n_val + n_tan, dtype), plain_reps=3)
-            if key == "point fold":
-                recs["K6"] = rec
-            elif key == "surface fold":
-                recs["K6s"] = rec
-            elif key == "point":
-                extra["K6 cost=0 (standing, 2560 stages)"] = rec
-            else:
-                extra["K6 surface cost=0 (walk stages, 3584)"] = rec
-    for r in list(recs.values()) + list(extra.values()):
-        print(f"  {r['name']:24s} {r['ms']:.4f} ms (a call {r['call_ms']:.4f})"
+    for r in recs.values():
+        print(f"  {r['name']:30s} {r['ms']:.4f} ms (a call {r['call_ms']:.4f})"
               f"  plain (a call) {r['plain_ms']:.3f}"
               f" ms  bound {r['bound_ms']:.4f} ms ({r['bound_by']})"
               f"  library {r['library_ms']}")
-    print("kernels_extra: " + json.dumps(extra))
     return recs
 
 
@@ -583,13 +598,15 @@ def _agree(tag, sol0, out_k, out_p):
     """Kernels vs plain versions after one MPC step: KKT to 1e-3
     relative; each field to 1e-2 of the largest change the plain step
     made to it (float32 rounding through a stiff problem's Newton
-    directions). Returns the gates missed (empty when all hold)."""
+    directions). Returns the gates missed, (KKT, fields); both empty when
+    all hold."""
     (sol_k, kkt_k), (sol_p, kkt_p) = out_k, out_p
-    fails = []
+    kkt_fails, fails = [], []
     for i, (a, b) in enumerate(zip(kkt_k, kkt_p)):
         rel = float(((a - b).abs() / b.abs()).max())
         if not rel <= 1e-3:
-            fails.append(f"update {i}: KKT kernel vs plain rel {rel:.2e}")
+            kkt_fails.append(f"update {i}: KKT kernel vs plain rel "
+                             f"{rel:.2e}")
     worst = {}
     for name in FIELDS:
         xk, xp = getattr(sol_k, name), getattr(sol_p, name)
@@ -601,26 +618,36 @@ def _agree(tag, sol0, out_k, out_p):
                          f"{step:.3e}")
     print(f"  {tag}: kernel vs plain, error / step: "
           + ", ".join(f"{k} {v:.1e}" for k, v in worst.items()))
-    return fails
+    return kkt_fails, fails
 
 
-def _agree_f64(tag, mk, grid, sol0, q0s, v0s, tol=1e-8):
+def _worst(out_a, out_b):
+    """Two MPC steps' (sol, kkts) apart: each KKT's largest relative
+    difference, and each field's largest difference over its largest
+    magnitude in out_b."""
+    (sol_a, kkt_a), (sol_b, kkt_b) = out_a, out_b
+    worst = {f"kkt{i}": float(((a - b).abs() / b.abs()).max())
+             for i, (a, b) in enumerate(zip(kkt_a, kkt_b))}
+    for name in FIELDS:
+        xa, xb = getattr(sol_a, name), getattr(sol_b, name)
+        worst[name] = float((xa - xb).abs().max()) / max(
+            float(xb.abs().max()), 1e-30)
+    return worst
+
+
+def _agree_f64(tag, mk, grid, sol0, q0s, v0s, tol=1e-8, strict=True):
     """One MPC step through the kernels against the plain versions in
     float64: the KKT and every field to tol relative to the field's
-    largest magnitude. Returns the worst ratios."""
-    (sol_k, kkt_k), (sol_p, kkt_p) = (_mpc_step(mk(k), grid, sol0, q0s, v0s)
-                                      for k in (True, False))
-    worst = {f"kkt{i}": float(((a - b).abs() / b.abs()).max())
-             for i, (a, b) in enumerate(zip(kkt_k, kkt_p))}
-    for name in FIELDS:
-        xk, xp = getattr(sol_k, name), getattr(sol_p, name)
-        worst[name] = float((xk - xp).abs().max()) / max(
-            float(xp.abs().max()), 1e-30)
+    largest magnitude (raises past it when strict). Returns the worst
+    ratios and the plain step."""
+    out_k, out_p = (_mpc_step(mk(k), grid, sol0, q0s, v0s)
+                    for k in (True, False))
+    worst = _worst(out_k, out_p)
     print(f"  {tag} float64: kernel vs plain, error / max-abs: "
           + ", ".join(f"{k} {v:.1e}" for k, v in worst.items()))
-    check(all(v <= tol for v in worst.values()),
+    check(not strict or all(v <= tol for v in worst.values()),
           f"{tag} float64: kernel vs plain past {tol:.0e}: {worst}")
-    return worst, sol_p
+    return worst, out_p[0]
 
 
 def _jittered(sol, rel=1e-6, seed=7):
@@ -637,12 +664,78 @@ def _jittered(sol, rel=1e-6, seed=7):
                           if n != "q"})
 
 
+def on_sphere(model, sol):
+    """`sol` with its base quaternion scaled to unit length: a point of
+    the configuration manifold. A float64 copy of a float32 iterate sits
+    off the unit sphere by float32 rounding (about 3e-8), where K6 and its
+    plain version differentiate in q differently (K6 seeds a base tangent
+    with R(q) hat(e), the plain version's jacfwd through q (+) e gives
+    |q|^2 R(q / |q|) hat(e): their q derivatives differ by a relative
+    |q|^2 - 1)."""
+    if not model.floating_base:
+        return sol
+    q = sol.q.clone()
+    q[..., 3:7] = q[..., 3:7] / q[..., 3:7].norm(dim=-1, keepdim=True)
+    return sol.replace(q=q)
+
+
 def _drift(name, sol, sol0, sol_64):
     """Field `name` of `sol` against the float64 step `sol_64` from sol0,
     relative to the largest change that step made to it."""
     ref = getattr(sol_64, name)
     step = max(float((ref - getattr(sol0, name)).abs().max()), 1e-30)
     return float((getattr(sol, name).double() - ref).abs().max()) / step
+
+
+# where the solver looks each kernel up, and its plain version
+KERNEL_SITES = {"K1": (cd, "k1", cd.k1_plain), "Kc": (cd, "kc", cd.kc_plain),
+                "K2": (cd, "k2", cd.k2_plain), "K3": (cd, "k3", cd.k3_plain),
+                "K5": (bs, "bwd", bs.bwd_plain),
+                "K6": (chn, "chain", chn.chain_plain)}
+
+
+@contextlib.contextmanager
+def _swapped(key, make):
+    """Kernel `key` replaced, where the solver looks it up, by
+    make(kernel) while the block runs."""
+    mod, name, _ = KERNEL_SITES[key]
+    kern = getattr(mod, name)
+    setattr(mod, name, make(kern))
+    try:
+        yield
+    finally:
+        setattr(mod, name, kern)
+
+
+def fault(kind, eps=PLANT_EPS, seed=0):
+    """A float32 fault to plant in a kernel: make(kernel) returns the
+    kernel with every floating output entry x replaced by x (1 + eps
+    N(0, 1)) ("noise", a seeded generator on the outputs' device, a new
+    draw each call) or by x rounded through torch.bfloat16 ("bf16")."""
+    gens = {}
+
+    def spoil(x):
+        if isinstance(x, dict):
+            return {k: spoil(v) for k, v in x.items()}
+        if isinstance(x, (tuple, list)):
+            return type(x)(spoil(v) for v in x)
+        if not (isinstance(x, torch.Tensor) and x.is_floating_point()):
+            return x
+        if kind == "bf16":
+            return x.to(torch.bfloat16).to(x.dtype)
+        if x.device not in gens:
+            gens[x.device] = torch.Generator(x.device).manual_seed(seed)
+        return x * (1 + eps * torch.randn(x.shape, generator=gens[x.device],
+                                          dtype=x.dtype, device=x.device))
+
+    def make(kern):
+        def planted(*a, **kw):
+            return spoil(kern(*a, **kw))
+
+        planted.launches = 0   # the wrapper counts on the name it is under
+        return planted
+
+    return make
 
 
 def _drift_by_kernel(tag, step, sol0, sol_64):
@@ -652,52 +745,68 @@ def _drift_by_kernel(tag, step, sol0, sol_64):
     to the plain step's points at that kernel's float32 rounding; several
     such swaps point at the step's sensitivity to any rounding change.
     Returns {kernel: {field: drift}}."""
-    swaps = {"K1": (cd, "k1", cd.k1_plain), "Kc": (cd, "kc", cd.kc_plain),
-             "K2": (cd, "k2", cd.k2_plain), "K3": (cd, "k3", cd.k3_plain),
-             "K5": (bs, "bwd", bs.bwd_plain),
-             "K6": (chn, "chain", chn.chain_plain)}
     out = {}
-    for key, (mod, name, plain) in swaps.items():
-        kern = getattr(mod, name)
-        setattr(mod, name, plain)
-        try:
+    for key, (_, _, plain) in KERNEL_SITES.items():
+        with _swapped(key, lambda kern: plain):
             sol = step()
-        finally:
-            setattr(mod, name, kern)
         out[key] = {n: _drift(n, sol, sol0, sol_64) for n in FIELDS}
         print(f"  {tag} float32 drift with {key} plain: "
               + ", ".join(f"{n} {v:.1e}" for n, v in out[key].items()))
     return out
 
 
-def _f32_drift(tag, sol0, steps, sol_64, factor=10.0):
+def drift_rows(sol0, steps, sol_64):
+    """{field: {step: drift}} of float32 steps from the plain float64 step
+    from the same iterate (`_drift`). `steps` holds the kernel step
+    ("kernel") and plain float32 steps (every other key)."""
+    return {n: {k: _drift(n, s, sol0, sol_64) for k, s in steps.items()}
+            for n in FIELDS}
+
+
+def drift_ratios(rows):
+    """{field: the kernel step's drift / the largest plain step's}."""
+    return {n: r["kernel"] / max(max(v for k, v in r.items()
+                                     if k != "kernel"), 1e-300)
+            for n, r in rows.items()}
+
+
+def over_gate(rows, factor):
+    """{field: drift ratio / factor} for the fields past the drift gate
+    (a drift ratio above factor)."""
+    return {n: v / factor for n, v in drift_ratios(rows).items()
+            if v > factor}
+
+
+def _f32_drift(tag, sol0, steps, sol_64, factor=10.0, strict=True):
     """float32 steps against the plain float64 step from the same iterate,
     each field relative to the largest change the float64 step made.
-    `steps` holds the kernel step ("kernel"), the plain step ("plain") and
-    the plain step from the iterate jittered by `_jittered` ("plain
-    jittered"): the two plain ones show how far float32 rounding alone
+    `steps` holds the kernel step ("kernel") and plain steps (every other
+    key: the plain step, "plain", and plain steps from iterates jittered
+    by `_jittered`): the plain ones show how far float32 rounding alone
     moves the step. A kernel step that drifts past `factor` times the
-    larger of them is a fault in a kernel's float32 arithmetic: raises.
-    Returns {field: {step: drift}}."""
-    rows = {n: {k: _drift(n, s, sol0, sol_64) for k, s in steps.items()}
-            for n in FIELDS}
+    largest of them is a fault in a kernel's float32 arithmetic: raises
+    (with strict False, returns it). Returns ({field: {step: drift}},
+    {field past the gate: ratio to it})."""
+    rows = drift_rows(sol0, steps, sol_64)
     print(f"  {tag} float32 drift from the float64 step / its change ("
           + ", ".join(steps) + "): "
           + ", ".join(f"{n} " + " ".join(f"{v:.1e}" for v in r.values())
                       for n, r in rows.items()))
-    bad = {n: r for n, r in rows.items()
-           if r["kernel"] > factor * max(r["plain"], r["plain jittered"])}
-    check(not bad, f"{tag}: the float32 kernel step drifts past {factor} x "
-          f"the plain float32 steps' drift: {bad}")
-    return rows
+    bad = over_gate(rows, factor)
+    check(not (strict and bad), f"{tag}: the float32 kernel step drifts "
+          f"past {factor} x the plain float32 steps' drift: {bad}")
+    return rows, bad
 
 
-def _run_path(tag, mk, grid, sol0, q0s, v0s, parts_fn, strict=True):
+def _run_path(tag, mk, grid, sol0, q0s, v0s, parts_fn, strict=True,
+              strict_kkt=None):
     """Drive one path: warm-up, counts reset, one MPC step through the
     kernels, counts read; the same step on the plain versions; timings.
-    With strict False a missed float32 agreement gate is returned in the
-    result ("f32_gates_missed") for the caller to settle. Returns the
+    The float32 agreement (`_agree`) gates the KKT when strict_kkt (None:
+    as strict) and the fields when strict; a gate not held is returned in
+    the result ("f32_gates_missed") for the caller to settle. Returns the
     launch counts, the result and the two steps' (sol, kkts)."""
+    strict_kkt = strict if strict_kkt is None else strict_kkt
     s_kern, s_plain = mk(True), mk(False)
     _mpc_step(s_kern, grid, sol0, q0s, v0s)            # warm-up
     torch.cuda.synchronize()
@@ -712,8 +821,10 @@ def _run_path(tag, mk, grid, sol0, q0s, v0s, parts_fn, strict=True):
         check(bool(torch.isfinite(kkt).all()), f"{tag} update {i}: KKT not "
               "finite")
     out_p = _mpc_step(s_plain, grid, sol0, q0s, v0s)
-    fails = _agree(tag, sol0, out_k, out_p)
-    check(not (strict and fails), f"{tag}: " + "; ".join(fails))
+    kkt_fails, field_fails = _agree(tag, sol0, out_k, out_p)
+    check(not (strict_kkt and kkt_fails), f"{tag}: " + "; ".join(kkt_fails))
+    check(not (strict and field_fails), f"{tag}: " + "; ".join(field_fails))
+    fails = kkt_fails + field_fails
     print(f"  {tag}: fleet KKT after the step: max "
           f"{float(out_k[1][-1].max()):.4e}")
     step_ms = host_ms(lambda: _mpc_step(s_kern, grid, sol0, q0s, v0s))
@@ -783,27 +894,134 @@ def phase_slice(dev):
         False, False))
 
 
-def phase_trot(dev):
-    """The main path: the trot MPC update at full width, float32, then the
-    float64 convergence run of one unperturbed scenario."""
-    p = problems.anymal_trot(N=N, dtype=torch.float32, device=dev)
-    sol0, q0s, v0s = problems.fleet(p.solver, p.grid, p.q0, p.v0, B)
+def trot_fleet(dtype, dev, seed=0, n=N, b=B):
+    """The trot fleet in `dtype` (horizon n, default N): b scenarios (B)
+    whose initial configurations `problems.fleet` moves with numpy seed
+    `seed`. Returns the problem, mk(use_kernels) -> the fleet's solver,
+    and (sol0, q0s, v0s)."""
+    p = problems.anymal_trot(N=n, dtype=dtype, device=dev)
     mpc = p.mpc
-    n_imp = mpc.n_reserved
 
     def mk(k):
         return OS.OCPSolver(p.model, mpc.contacts, p.costs, mpc.limits,
-                            T=p.T, N=p.N, n_reserved_events=n_imp,
+                            T=p.T, N=p.N, n_reserved_events=mpc.n_reserved,
                             options=OS.SolverOptions(
                                 switching_constraints=True, use_kernels=k))
 
+    return p, mk, problems.fleet(p.solver, p.grid, p.q0, p.v0, b, seed=seed)
+
+
+def plain_steps(mk, grid, sol0, q0s, v0s, sol_p):
+    """The plain float32 step `sol_p` from sol0 and the plain steps from
+    sol0 jittered (`_jittered`) with each of JITTER_SEEDS."""
+    steps = {"plain": sol_p}
+    for s in JITTER_SEEDS:
+        steps[f"plain jittered {s}"] = _mpc_step(
+            mk(False), grid, _jittered(sol0, seed=s), q0s, v0s)[0]
+    return steps
+
+
+def trot_gate(tag, f32, f64, out_k, out_p, factor=TROT_K, strict=True):
+    """The trot's gates on one iterate, f32 = (mk, grid, sol0, q0s, v0s) of
+    the float32 fleet and f64 the same of the float64 fleet built like it:
+    one MPC step through the kernels against the plain versions in float64
+    to 1e-8 of each field's max-abs (`_agree_f64`), then each field's drift
+    of the float32 kernel step `out_k` from the plain float64 step within
+    `factor` times the largest drift among the plain float32 step `out_p`
+    and the plain steps from two jittered iterates (`_f32_drift`). Raises
+    when strict. Returns the float64 agreement, the plain float32 steps,
+    the plain float64 step, the drift rows and the fields past the drift
+    gate."""
+    mk, grid, sol0, q0s, v0s = f32
+    worst64, sol_p64 = _agree_f64(tag, *f64, strict=strict)
+    plain = plain_steps(mk, grid, sol0, q0s, v0s, out_p[0])
+    rows, bad = _f32_drift(tag, f64[2], {"kernel": out_k[0], **plain},
+                           sol_p64, factor=factor, strict=strict)
+    ratios = drift_ratios(rows)
+    print(f"  {tag} float32 drift / the plain steps' largest (gate "
+          f"{factor:g}): " + ", ".join(f"{n} {v:.2f}"
+                                       for n, v in ratios.items()))
+    return dict(f64_agreement=worst64, plain=plain, sol_p64=sol_p64,
+                f32_drift=rows, drift_ratio=ratios, over_gate=bad)
+
+
+def plant_test(tag, f32, out_p, gate, sol64, factor=TROT_K, cases=None,
+               strict=True):
+    """The drift gate's power: one fault (`fault`) at a time in one
+    kernel's outputs where the solver looks it up, for each of the six
+    kernels: relative noise PLANT_EPS and bfloat16 rounding, each judged by
+    the old agreement (`_agree`, KKT and fields) and by the drift gate
+    (`over_gate` at `factor`, against the plain steps of `gate`); then the
+    noise at PLANT_EPS_SHOWN, printed only (`cases`, (kernel, kind, eps,
+    gated) tuples, replaces that list). Raises (when strict) if the drift
+    gate passes a gated plant that the old agreement refuses. Returns a
+    record per plant."""
+    mk, grid, sol0, q0s, v0s = f32
+    if cases is None:
+        cases = [(key, kind, PLANT_EPS, True) for key in KERNEL_SITES
+                 for kind in ("noise", "bf16")]
+        cases += [(key, "noise", eps, False) for eps in PLANT_EPS_SHOWN
+                  for key in KERNEL_SITES]
+    recs, missed = [], []
+    for key, kind, eps, gated in cases:
+        name = f"{key} {kind}" + (f" {eps:.0e}" if kind == "noise" else "")
+        with _swapped(key, fault(kind, eps)):
+            out_f = _mpc_step(mk(True), grid, sol0, q0s, v0s)
+        kkt_f, fld_f = _agree(f"{tag} plant {name}", sol0, out_f, out_p)
+        rows = drift_rows(sol64, {"kernel": out_f[0], **gate["plain"]},
+                          gate["sol_p64"])
+        ratio = drift_ratios(rows)
+        top = max(ratio, key=ratio.get)
+        drift_refuses = bool(over_gate(rows, factor))
+        # the new gate: the drift gate and the KKT gate the old one shares
+        rec = dict(plant=name, gated=gated, old_refuses=bool(kkt_f or fld_f),
+                   old_kkt_refuses=bool(kkt_f), drift_refuses=drift_refuses,
+                   new_refuses=drift_refuses or bool(kkt_f),
+                   max_drift_ratio=ratio[top], field=top)
+        recs.append(rec)
+        print(f"  {tag} plant {name}: old agreement "
+              f"{'refuses' if rec['old_refuses'] else 'passes'}"
+              f"{' (KKT)' if kkt_f else ''}; drift gate "
+              f"{'refuses' if rec['drift_refuses'] else 'passes'}, largest "
+              f"drift / plain {ratio[top]:.3g} ({top}); with the KKT "
+              f"{'refuses' if rec['new_refuses'] else 'passes'}"
+              + ("" if gated else " [shown, not gated]"))
+        if gated and rec["old_refuses"] and not rec["drift_refuses"]:
+            missed.append(name)
+    check(not (strict and missed), f"{tag}: the drift gate passes plants "
+          f"the old agreement refuses: {missed}")
+    return recs
+
+
+def phase_trot(dev):
+    """The main path: the trot MPC update at full width, float32, gated
+    against the float64 fleet and self-tested on planted faults; then the
+    float64 convergence run of one unperturbed scenario."""
+    f32_, f64_ = torch.float32, torch.float64
+    p, mk, (sol0, q0s, v0s) = trot_fleet(f32_, dev)
+    mpc = p.mpc
+    n_imp = mpc.n_reserved
     sol_b, grid_b, q_b, v_b, _ = OS._fleet(sol0, p.grid, q0s, v0s)
-    launches, out, _ = _run_path(
+    # the float32 agreement with the plain step is printed; its KKT gated
+    launches, out, (out_k, out_p) = _run_path(
         "trot", mk, p.grid, sol0, q0s, v0s, lambda: _parts(
             p.model, mpc.contacts, mpc.limits, p.costs, sol_b, grid_b, q_b,
-            v_b, n_imp, True, True))
+            v_b, n_imp, True, True), strict=False, strict_kkt=True)
+    p64, mk64, (sol64, q64, v64) = trot_fleet(f64_, dev)
+    f32 = (mk, p.grid, sol0, q0s, v0s)
+    gate = trot_gate("trot", f32, (mk64, p64.grid, sol64, q64, v64), out_k,
+                     out_p)
+    # the float64 gate one step in: from the plain float64 step rounded to
+    # float32, its base quaternion back on the unit sphere (`on_sphere`)
+    sol64_1 = on_sphere(p64.model, gate["sol_p64"].map(
+        lambda x: x.to(f32_).to(f64_)))
+    out.update(f64_agreement=gate["f64_agreement"],
+               f64_agreement_iterate_1=_agree_f64(
+                   "trot iterate 1", mk64, p64.grid, sol64_1, q64, v64)[0],
+               f32_drift=gate["f32_drift"], drift_ratio=gate["drift_ratio"],
+               drift_factor=TROT_K)
+    out["plants"] = plant_test("trot", f32, out_p, gate, sol64)
     # float64, one unperturbed scenario, 15 updates through the kernels
-    p64 = problems.anymal_trot(N=N, dtype=torch.float64, device=dev)
     sol = p64.solver.init_solution(p64.grid, p64.q0, p64.v0)
     before = read_counts()
     kkts = []
@@ -818,7 +1036,102 @@ def phase_trot(dev):
     check(kkts[-1] < 1e-3, f"trot f64: KKT {kkts[-1]:.3e} >= 1e-3 after 15 "
           "updates")
     out["f64_kkt_after_15"] = kkts[-1]
+    print("trot gate: " + json.dumps({k: out[k] for k in (
+        "f64_agreement", "f64_agreement_iterate_1", "drift_ratio",
+        "drift_factor", "plants")}))
     return launches, out
+
+
+def f64_sources(tag, mk, grid, sol0, q0s, v0s):
+    """Where a float64 difference between the kernel step and the plain
+    step from sol0 comes from: the plain step from sol0 jittered by 1e-12
+    (`_jittered`; the step's own sensitivity) against the plain step, and
+    the kernel step with each kernel in turn swapped for its plain version
+    against the plain step. Returns {case: `_worst`}."""
+    ref = _mpc_step(mk(False), grid, sol0, q0s, v0s)
+    out = {"plain jittered 1e-12": _worst(_mpc_step(
+        mk(False), grid, _jittered(sol0, rel=1e-12), q0s, v0s), ref)}
+    for key, (_, _, plain) in KERNEL_SITES.items():
+        with _swapped(key, lambda kern: plain):
+            out[f"{key} plain"] = _worst(
+                _mpc_step(mk(True), grid, sol0, q0s, v0s), ref)
+    for case, w in out.items():
+        print(f"  {tag} float64 {case} vs plain, error / max-abs: "
+              + ", ".join(f"{k} {v:.1e}" for k, v in w.items()))
+    return out
+
+
+def phase_readings(dev, seeds=(0, 1, 2)):
+    """The trot's gates (`trot_gate`, not raising) on the fleets of three
+    perturbation seeds, each at its initial iterate and at the iterate one
+    plain float64 MPC step later, rounded to float32 (the float64 fleet
+    starts from it with its base quaternion back on the unit sphere,
+    `on_sphere`), with the twelve gated plants (`plant_test`) on every
+    reading and the printed ones on the first, one JSON line per reading.
+    At the later iterate also the float64 agreement from the rounded
+    iterate off the unit sphere with its sources (`f64_sources`), and from
+    the float64 fleet's own, unrounded iterate. Ends with a summary line.
+    Not among the default phases."""
+    f32_, f64_ = torch.float32, torch.float64
+    gated = [(key, kind, PLANT_EPS, True) for key in KERNEL_SITES
+             for kind in ("noise", "bf16")]
+    out = []
+    for seed in seeds:
+        p, mk, (sol0, q0s, v0s) = trot_fleet(f32_, dev, seed)
+        p64, mk64, (sol64, q64, v64) = trot_fleet(f64_, dev, seed)
+        for it in (0, 1):
+            tag = f"readings seed {seed} iterate {it}"
+            out_k = _mpc_step(mk(True), p.grid, sol0, q0s, v0s)
+            out_p = _mpc_step(mk(False), p.grid, sol0, q0s, v0s)
+            kkt_f, fld_f = _agree(tag, sol0, out_k, out_p)
+            f32 = (mk, p.grid, sol0, q0s, v0s)
+            gate = trot_gate(tag, f32, (mk64, p64.grid, sol64, q64, v64),
+                             out_k, out_p, strict=False)
+            rec = dict(seed=seed, iterate=it, old_kkt_fails=kkt_f,
+                       old_field_fails=fld_f,
+                       f64_agreement=gate["f64_agreement"],
+                       drift_ratio=gate["drift_ratio"],
+                       over_gate=gate["over_gate"])
+            rec["plants"] = plant_test(tag, f32, out_p, gate, sol64,
+                                       cases=None if not out else gated,
+                                       strict=False)
+            if it == 1:
+                rec["f64_agreement_off_sphere"] = _agree_f64(
+                    tag + " off the unit sphere", mk64, p64.grid, off64,
+                    q64, v64, strict=False)[0]
+                rec["f64_sources_off_sphere"] = f64_sources(
+                    tag + " off the unit sphere", mk64, p64.grid, off64,
+                    q64, v64)
+                # the float64 fleet's own iterate, not rounded to float32
+                rec["f64_agreement_unrounded"] = _agree_f64(
+                    tag + " unrounded", mk64, p64.grid, prev, q64, v64,
+                    strict=False)[0]
+            print("reading: " + json.dumps(rec), flush=True)
+            out.append(rec)
+            prev = gate["sol_p64"]
+            sol0 = prev.map(lambda x: x.to(f32_))
+            off64 = sol0.map(lambda x: x.to(f64_))
+            sol64 = on_sphere(p64.model, off64)
+    plants = [r for rec in out for r in rec.get("plants", []) if r["gated"]]
+    summary = dict(
+        readings=len(out),
+        largest_drift_ratio=max(max(r["drift_ratio"].values()) for r in out),
+        largest_f64_agreement=max(max(r["f64_agreement"].values())
+                                  for r in out),
+        plants_judged=len(plants),
+        plants_old_refuses=sum(r["old_refuses"] for r in plants),
+        plants_drift_refuses=sum(r["drift_refuses"] for r in plants),
+        plants_missed=[r["plant"] for r in plants
+                       if r["old_refuses"] and not r["drift_refuses"]],
+        plants_missed_by_new_gate=[r["plant"] for r in plants
+                                   if r["old_refuses"]
+                                   and not r["new_refuses"]],
+        smallest_plant_ratio={k: min(r["max_drift_ratio"] for r in plants
+                                     if r["plant"] == k)
+                              for k in dict.fromkeys(r["plant"]
+                                                     for r in plants)})
+    print("readings summary: " + json.dumps(summary), flush=True)
+    return out
 
 
 def phase_golden(dev):
@@ -857,12 +1170,12 @@ def phase_walk(dev):
     solver = OS.OCPSolver(ps.model, ps.contacts, (ps.cost,), ps.limits,
                           T=ps.T, N=ps.N)
     sol = solver.init_solution(ps.grid, ps.q0, ps.v0)
-    before = read_counts()
+    reset_counts()
     for _ in range(12):
         sol, _, _, _ = solver.update(ps.grid, ps.q0, ps.v0, sol)
-    after = read_counts()
-    check(all(after[k] - before[k] == 12 for k in after),
-          f"biped standing run bypassed a kernel: {before} -> {after}")
+    standing_launches = read_counts()
+    check(all(v == 12 for v in standing_launches.values()),
+          f"biped standing run bypassed a kernel: {standing_launches}")
     kkt = float(solver.kkt_error(ps.grid, ps.q0, ps.v0, sol))
     print(f"  biped standing: kkt {kkt:.3e} after 12 f64 updates through "
           "the kernels (gate 1e-6)")
@@ -917,7 +1230,7 @@ def phase_walk(dev):
     out["f64_agreement"], sol_p64 = _agree_f64("walk", mk64, grid64, sol64,
                                                q64, v64)
     sol_j = _mpc_step(mk(False), grid, _jittered(sol0), q0s, v0s)[0]
-    out["f32_drift"] = _f32_drift("walk", sol64, {
+    out["f32_drift"], _ = _f32_drift("walk", sol64, {
         "kernel": out_k[0], "plain": out_p[0], "plain jittered": sol_j},
         sol_p64)
     out["f32_drift_by_kernel"] = _drift_by_kernel(
@@ -927,25 +1240,20 @@ def phase_walk(dev):
         print("  walk: float32 gates missed (reported, float64 gate holds): "
               + "; ".join(out["f32_gates_missed"]))
     out.update(warm_start_s=warm_s, warm_start_kkt=kkt_w,
-               biped_standing_kkt=kkt, stage_slots=B * (n_slots - 1))
+               biped_standing_kkt=kkt, stage_slots=B * (n_slots - 1),
+               biped_standing_launches=standing_launches)
     print("walk: " + json.dumps(out))
     return launches, out
 
 
 def _summary(out):
-    """K5/K6 times (ms) and ms per MPC step from one run's output."""
+    """Each kernel's device time (ms) and ms per MPC step from one run's
+    output."""
     row = {}
     for line in out.splitlines():
         if line.startswith('{"kernels"'):
             for r in json.loads(line)["kernels"]:
-                if r["name"].startswith(("K5", "K6")):
-                    key = "K5 sw" if r["name"].startswith("K5") else (
-                        "K6 surface fold" if "surface" in r["name"]
-                        else "K6 point fold")
-                    row[key] = r["ms"]
-        elif line.startswith("kernels_extra: "):
-            for k, r in json.loads(line[len("kernels_extra: "):]).items():
-                row[k.split(" (")[0]] = r["ms"]
+                row[r["name"]] = r["ms"]
         for tag in ("slice", "trot", "walk"):
             if line.startswith(tag + ": {"):
                 row[tag + " ms/step"] = json.loads(
@@ -957,8 +1265,9 @@ def pair(other, phases, out_dir):
     """Run `phases` of this script on the package of the tree at `other`
     and on this tree's in turns (other, this, this, other) on this card,
     each in its own process, so that both are measured the same way; each
-    run's output goes to <out_dir>/pair_<i>.txt. Prints the K5/K6 times
-    and ms per MPC step of each run; returns non-zero if a run failed."""
+    run's output goes to <out_dir>/pair_<i>.txt. Prints the kernels'
+    device times and ms per MPC step of each run; returns non-zero if a
+    run failed."""
     os.makedirs(out_dir, exist_ok=True)
     rc = 0
     for i, tree in enumerate((other, ROOT, ROOT, other)):
@@ -995,20 +1304,32 @@ def main(phases=ALL_PHASES):
     if "build" in phases:
         phase_build()
     recs = phase_kernels(dev) if "kernels" in phases else {}
+    def note(launches, pairs, run):
+        """Each record's launches: its kernel's count over the run named,
+        counted from 0 just before it."""
+        for key, name in pairs:
+            if key in recs:
+                recs[key].update(launches=launches[name], launches_of=run)
+
+    note({"K6": 0}, (("K6 nv35", "K6"), ("K6 nv35 nofold", "K6")),
+         "no path runs it")
+    step = f"one MPC step (2 updates) of the B = {B} float32 fleet"
     if "slice" in phases:
-        phase_slice(dev)
+        launches, _, _ = phase_slice(dev)
+        note(launches, (("K5 nf0", "K5"), ("K6 nofold", "K6")),
+             "standing: " + step)
     if "trot" in phases:
         launches, _ = phase_trot(dev)
-        for name, n in launches.items():
-            if name in recs:
-                recs[name]["launches"] = n
+        note(launches, [(k, k) for k in COUNTERS], "trot: " + step)
+    if "readings" in phases:
+        phase_readings(dev)
     if "golden" in phases:
         phase_golden(dev)
     if "walk" in phases:
-        launches, _ = phase_walk(dev)
-        for key, name in (("K6s", "K6"), ("Kc34", "Kc")):
-            if key in recs:
-                recs[key]["launches"] = launches[name]
+        launches, out = phase_walk(dev)
+        note(launches, (("K6s", "K6"), ("Kc34", "Kc")), "walk: " + step)
+        note(out["biped_standing_launches"], (("K6s nofold", "K6"),),
+             "biped standing OCP (N 4, one scenario, float64): 12 updates")
     print(f"total {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": list(recs.values())}))
     print(card)

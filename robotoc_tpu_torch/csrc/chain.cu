@@ -2,130 +2,77 @@
 //
 // Replaces robotoc_tpu ops/pallas_chain.py:_chain_kernel (launch :1110,
 // entry make_chain :1121 / get_chain :1186): its point-contact branch for
-// ANYmal's four feet and its surface-contact branch for the iCub lower
-// half's two soles. Built for (NV, NJ, NC, contact type) = (18, 13, 4,
-// point) and (18, 13, 2, surface), each in float and double, with and
-// without the cost fold.
+// ANYmal's four feet and its surface-contact branch for the iCub soles.
+// Built for the trees of csrc/chain_stage.cuh (ChainTree): (NV, NJ, NC,
+// contact type) = (18, 13, 4, point), ANYmal; (18, 13, 2, surface), the
+// iCub lower half; (35, 30, 2, surface), the full iCub, whose torso
+// carries both arms (checked against the plain version only: no MPC path
+// of the port runs it; csrc/chain_icub.cu, a library of its own so that
+// its nvcc runs beside this one's); each in float and double, with and
+// without the cost fold. The chain layout (which joints form a chain, where each
+// chain hangs) is a table read from the model (ops/chain.chain_layout).
 //
-// Design: one thread block per stage (the fleet's B x S stages flattened,
-// as the Pallas entry's custom-vmap rule did), 64 threads of which the
-// first 3 nv = 54 each own one tangent column (dq | dv | da) and carry it
-// as a value/tangent pair through the level-ordered forward sweep, the
-// contact, cone and task rows and the RNEA backward sweep
-// (csrc/chain_stage.cuh). Every column recomputes the values beside its
-// tangent; column 0 alone stores them in shared memory, where the other
-// columns read their parents' values. The columns' tangent state lives
-// there too, 50 KB in f32 and 100 KB in f64 with the cost fold, above
-// 48 KB by cudaFuncSetAttribute as for K5. Structural zeros (a
-// placement's dv/da tangent, a velocity's da tangent) are not stored, but
-// the dv/da columns still multiply their zero placement tangents through.
-// The Pallas kernel's 128-lane tiling and its pre-broadcast constants are
-// gone; the model constants and topology are two small device arrays
-// every block reads.
+// Design: a warp per stage, kWarps stages per block (the fleet's B x S
+// stages flattened, as the Pallas entry's custom-vmap rule did), every
+// barrier the warp's own (__syncwarp; csrc/chain_stage.cuh): the values
+// once, by one lane per chain, then the tangents, one column (dq | dv |
+// da) per lane, as plain scalars and only where they are not structural
+// zeros, then the cost fold's products over the lanes. A stage's workspace
+// in shared memory holds its values, each lane's force tangents along the
+// chains it has open and the cost fold's rows (ChainStage::WS, f32: 5.3 KB
+// without the fold, 8.9 KB with it at ANYmal's widths; 7.2 and 10.4 KB at
+// the iCub lower half's, 27.7 KB with the fold for the full iCub); the
+// other tangents live in registers. f32 is held to 128
+// registers a thread, so 16 warps share an SM. The Pallas kernel's
+// 128-lane tiling and its pre-broadcast constants are gone; the model
+// constants and topology are two small device arrays every warp reads
+// through the cache.
 //
 // Bound on the card: per stage the kernel reads about 0.2 K values
 // (configuration, velocity, acceleration, forces, references) and writes
 // about 3.0 K (the 18 x 18 and 12 x 18 Jacobian blocks dominate), some
-// 13 KB in f32, about 40 MB for 3072 stages: 12 us at 3.35 TB/s. The
-// function needs about 50 K operations per stage (values once, structural
-// zeros skipped; counted by csrc/chain_flops.cpp), 2.3 us for 3072 stages
-// at the f32 peak, so bytes bound it. The kernel as written does about
-// 23 times that arithmetic (the recomputed values and the zero tangents),
-// and it is latency-bound besides: a stage's 54 columns fill under two
-// warps and the levels are barriers. Making it fast (values once per
-// level, the zero tangents skipped, several stages per block) is queued
-// in ROADMAP.md under K6.
+// 13 KB in f32, about 40 MB for 3072 stages: 12 us at 3.35 TB/s. Its
+// body does about 53 K operations per stage besides those on structural
+// zeros (counted by csrc/chain_flops.cpp), 2.4 us for 3072 stages at the
+// f32 peak, so bytes bound it. On
+// "NVIDIA H100 80GB HBM3, 700.00 W" (device time, f32, chip_smoke.py's
+// kernels phase): 0.175 ms at the trot's 3072 stages with the cost fold,
+// 14 times its bound, 2.4 times faster than the value/tangent-pair kernel
+// it replaced; reading the chain layout from a table costs it under 8 %
+// against a body built for star trees alone. What holds it
+// there: a warp's time is its slowest lane's, and the base columns walk
+// every chain while a leg column touches one; in the value pass one lane
+// a chain works.
 //
 // The surface branch adds per contact 6 Baumgarte rows (3 for a point) and
 // 17 cone rows (5); its cone rows take no tangents (the wrench cone acts on
 // the local wrench), and its SE(3)-log residual is the so3 log and
-// left-Jacobian inverse the cost fold already runs. At the walk's shapes
-// (3584 stages, f32, cost fold) it moves about 14 KB per stage, ~52 MB:
-// 16 us at 3.35 TB/s; bytes bound it as they bound the point branch.
+// left-Jacobian inverse the cost fold already runs, split into values and
+// tangents as the rest. At the walk's shapes (3584 stages, f32, cost fold)
+// it moves about 14 KB per stage, ~52 MB: 16 us at 3.35 TB/s; bytes bound
+// it as they bound the point branch. On the same card: 0.164-0.178 ms,
+// 11 times its bound.
 //
-// C interface: rtt_chain(dtype, with_cost, nv, nj, nc, ctype, consts,
-// topo, ins, outs, S, stream); ins/outs are host arrays of device pointers
-// in the order of ops/chain.py, ctype is 3 (point) or 6 (surface). Returns
-// 0, -1 for an unsupported dtype/dims/contact type, else the
-// cudaGetLastError() code after the launch. dtype 0 = float, 1 = double.
-#include <cuda_runtime.h>
-
-#include "chain_stage.cuh"
-
-extern __shared__ __align__(16) unsigned char rtt_smem[];
-
-namespace {
-
-constexpr int kThreads = 64;
-constexpr int NV = 18, NJ = 13;   // ANYmal and the iCub lower half
-
-template <typename T>
-struct Ptrs {
-  const T* in[21];
-  T* out[22];
-};
-
-template <typename T, int NC, int CT, bool WC>
-__global__ void __launch_bounds__(kThreads)
-chain_kernel(const T* __restrict__ consts, const int* __restrict__ topo,
-             Ptrs<T> p) {
-  rtt::ChainStage<T, NV, NJ, NC, WC, CT>::run(
-      consts, topo, p.in, p.out, blockIdx.x, reinterpret_cast<T*>(rtt_smem),
-      threadIdx.x, blockDim.x);
-}
-
-template <typename T, int NC, int CT, bool WC>
-int launch(const void* consts, const void* topo, const void* const* ins,
-           void* const* outs, long long S, void* stream) {
-  using Stage = rtt::ChainStage<T, NV, NJ, NC, WC, CT>;
-  if (S == 0) return 0;
-  Ptrs<T> p;
-  for (int i = 0; i < Stage::N_IN; ++i) p.in[i] = static_cast<const T*>(ins[i]);
-  for (int i = 0; i < Stage::N_OUT; ++i) p.out[i] = static_cast<T*>(outs[i]);
-  auto kernel = chain_kernel<T, NC, CT, WC>;
-  const size_t bytes = sizeof(T) * Stage::WS;
-  if (bytes > 48 * 1024) {
-    cudaError_t err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(bytes));
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
-  kernel<<<static_cast<unsigned>(S), kThreads, bytes,
-           static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const T*>(consts), static_cast<const int*>(topo), p);
-  return static_cast<int>(cudaGetLastError());
-}
-
-template <int NC, int CT>
-int dispatch(int dtype, int with_cost, const void* consts, const void* topo,
-             const void* const* ins, void* const* outs, long long S,
-             void* stream) {
-  if (dtype == 0)
-    return with_cost
-               ? launch<float, NC, CT, true>(consts, topo, ins, outs, S, stream)
-               : launch<float, NC, CT, false>(consts, topo, ins, outs, S,
-                                              stream);
-  if (dtype == 1)
-    return with_cost
-               ? launch<double, NC, CT, true>(consts, topo, ins, outs, S,
-                                              stream)
-               : launch<double, NC, CT, false>(consts, topo, ins, outs, S,
-                                               stream);
-  return -1;
-}
-
-}  // namespace
+// C interface: rtt_chain(dtype, with_cost, nv, nj, nc, ctype, max_len,
+// n_levels, consts, topo, ins, outs, S, stream); ins/outs are host arrays
+// of device pointers in the order of ops/chain.py, ctype is 3 (point) or 6
+// (surface), max_len and n_levels the model's longest chain and number of
+// chain levels (ops/chain.chain_layout). Returns 0, -1 for an unsupported
+// dtype/dims/contact type, -2 for a chain layout past the tree's workspace
+// (ChainTree's capacities), else the cudaGetLastError() code after the
+// launch. dtype 0 = float, 1 = double.
+#include "chain_launch.cuh"
 
 extern "C" int rtt_chain(int dtype, int with_cost, int nv, int nj, int nc,
-                         int ctype, const void* consts, const void* topo,
+                         int ctype, int max_len, int n_levels,
+                         const void* consts, const void* topo,
                          const void* const* ins, void* const* outs,
                          long long S, void* stream) {
-  if (nv != NV || nj != NJ) return -1;
-  if (nc == 4 && ctype == rtt::kPoint)       // ANYmal, four point feet
-    return dispatch<4, rtt::kPoint>(dtype, with_cost, consts, topo, ins, outs,
-                                    S, stream);
-  if (nc == 2 && ctype == rtt::kSurface)     // iCub lower half, two soles
-    return dispatch<2, rtt::kSurface>(dtype, with_cost, consts, topo, ins,
-                                      outs, S, stream);
+  if (is<rtt::AnymalFeet>(nv, nj, nc, ctype))
+    return dispatch<rtt::AnymalFeet>(dtype, with_cost, max_len, n_levels,
+                                     consts, topo, ins, outs, S, stream);
+  if (is<rtt::IcubLegSoles>(nv, nj, nc, ctype))
+    return dispatch<rtt::IcubLegSoles>(dtype, with_cost, max_len, n_levels,
+                                       consts, topo, ins, outs, S, stream);
   return -1;
 }

@@ -1,40 +1,26 @@
-// Operation count of the chain kernel K6's function, for its roofline
-// bound (g++, no CUDA). Build: g++ -O2 -std=c++17 -shared -fPIC
-// chain_flops.cpp.
+// Operation count of the chain kernel K6, for its roofline bound (g++, no
+// CUDA). Build: g++ -O2 -std=c++17 -shared -fPIC chain_flops.cpp.
 //
-// The per-stage body of csrc/chain_stage.cuh runs on a counting scalar,
-// Flop, that carries a "structural zero" flag: literal zeros and the model
-// constants that are exactly zero (axis components, identity entries)
-// start it; a product with a structural zero and a sum of two are
-// structural zeros, and cost nothing, as does a sum with one. Every other
-// +, -, *, / and every sqrt, sin, cos, acos counts one operation. Data
-// (configuration, velocities, forces, references, weights) is never a
-// structural zero, whatever its value.
-//
-// The kernel recomputes every value in each of its 3 nv tangent columns
-// and multiplies zero tangents through; the count does not charge either:
-//   * each stage runs once uncounted, to fill the workspace, then once per
-//     column: thread t of 3 nv threads, one thread after another;
-//   * an operation whose operands are all values counts only in thread
-//     0's run, i.e. once per stage. Thread 0's run also holds its share of
-//     the cooperative loops' value-only arithmetic (the cost fold's
-//     gradient rows); the other threads' shares, about 750 operations per
-//     stage, are not counted;
-//   * an operation that reads a tangent counts in every thread's run, but
-//     only where no operand is a structural zero: a placement's dv/da
-//     tangent, a velocity's da tangent and a joint's tangent in a column
-//     of another branch of the tree cost nothing.
-// What this leaves counted twice: the Gauss-Jordan pivot reciprocal each
-// thread computes (6 per stage and thread).
-//
-// With as_written the same runs count every operation of every thread,
-// zeros and repeated values included: the arithmetic the kernel does.
+// The kernel's own body (csrc/chain_stage.cuh) runs once per stage, one
+// lane doing every lane's work, on a counting scalar, Flop, that carries a
+// "structural zero" flag: literal zeros and the model constants that are
+// exactly zero (axis components, identity entries) start it; a product
+// with a structural zero and a sum of two are structural zeros, and cost
+// nothing, as does a sum with one. Every other +, -, *, / and every sqrt,
+// sin, cos, acos counts one operation. Data (configuration, velocities,
+// forces, references, weights) is never a structural zero, whatever its
+// value. The body computes each value once and propagates a tangent
+// column only where it is not a structural zero, so the count is the
+// arithmetic the kernel needs, without the multiplications by zero it
+// does to keep its lanes in step. An operation is a tangent operation when
+// an operand descends from a tangent seed (tan_seed, overloaded below),
+// else a value operation.
 #include <vector>
 
 namespace fc {
 
 struct Counts {
-  bool on = false, values = false, as_written = false;
+  bool on = false;
   long long value_ops = 0, tangent_ops = 0;
 };
 thread_local Counts g;   // one count per calling thread
@@ -52,10 +38,10 @@ inline Flop counted(double x, bool zero, bool tan, bool work) {
   r.x = x;
   r.zero = zero;
   r.tan = tan;
-  if (g.on && (work || g.as_written)) {
+  if (g.on && work) {
     if (tan)
       ++g.tangent_ops;
-    else if (g.values || g.as_written)
+    else
       ++g.value_ops;
   }
   return r;
@@ -86,6 +72,10 @@ inline bool operator<(Flop a, Flop b) { return a.x < b.x; }
 inline bool operator>(Flop a, Flop b) { return a.x > b.x; }
 
 inline Flop unary(double x, Flop a) { return counted(x, false, a.tan, true); }
+inline Flop tan_seed(Flop x) {   // where the kernel's tangents start
+  x.tan = true;
+  return x;
+}
 }  // namespace fc
 
 #include <math.h>
@@ -99,35 +89,12 @@ inline Flop m_acos(Flop a) { return unary(acos(a.x), a); }
 
 #include "chain_stage.cuh"
 
-namespace rtt {
-// A dual's second member is a tangent: mark it so.
-template <>
-struct Dual<fc::Flop> {
-  using F = fc::Flop;
-  F v, d;
-  static F tangent(F x) {
-    x.tan = true;
-    return x;
-  }
-  Dual() : v(0.0), d(tangent(F(0.0))) {}
-  Dual(F v_, F d_ = F(0.0)) : v(v_), d(tangent(d_)) {}
-  friend Dual operator+(Dual a, Dual b) { return Dual(a.v + b.v, a.d + b.d); }
-  friend Dual operator-(Dual a, Dual b) { return Dual(a.v - b.v, a.d - b.d); }
-  friend Dual operator-(Dual a) { return Dual(-a.v, -a.d); }
-  friend Dual operator*(Dual a, Dual b) {
-    return Dual(a.v * b.v, a.d * b.v + a.v * b.d);
-  }
-};
-}  // namespace rtt
-
 namespace {
-constexpr int NV = 18, NJ = 13;   // ANYmal and the iCub lower half
 
-template <int NC, int CT, bool WC>
+template <typename TREE, bool WC>
 void count(const double* consts, int n_consts, const int* topo,
-           const double* const* ins, long long S, bool as_written,
-           long long* out) {
-  using K = rtt::ChainStage<fc::Flop, NV, NJ, NC, WC, CT>;
+           const double* const* ins, long long S, long long* out) {
+  using K = rtt::ChainStage<fc::Flop, TREE, WC>;
   using fc::Flop;
   std::vector<Flop> c(consts, consts + n_consts);
   std::vector<std::vector<Flop>> in(K::N_IN), res(K::N_OUT);
@@ -143,14 +110,8 @@ void count(const double* consts, int n_consts, const int* topo,
       in_p[i] = in[i].data();
     }
     for (int i = 0; i < K::N_OUT; ++i) out_p[i] = res[i].data();
-    fc::g.on = false;
-    fc::g.as_written = as_written;
-    K::run(c.data(), topo, in_p, out_p, 0, ws.data(), 0, 1);
     fc::g.on = true;
-    for (int t = 0; t < K::NCOL; ++t) {
-      fc::g.values = t == 0;
-      K::run(c.data(), topo, in_p, out_p, 0, ws.data(), t, K::NCOL);
-    }
+    K::run(c.data(), topo, in_p, out_p, 0, ws.data(), 0, 1);
     fc::g.on = false;
   }
   out[0] = fc::g.value_ops;
@@ -158,35 +119,42 @@ void count(const double* consts, int n_consts, const int* topo,
   fc::g = fc::Counts();
 }
 
-template <int NC, int CT>
-void count_wc(int with_cost, const double* consts, int n_consts,
-              const int* topo, const double* const* ins, long long S,
-              bool as_written, long long* out) {
+// 1 when TREE is (nv, nc, ctype) and its layout fits (-2 when it does
+// not), 0 for another tree
+template <typename TREE>
+int count_tree(int nv, int with_cost, int nc, int ctype, const double* consts,
+               int n_consts, const int* topo, const double* const* ins,
+               long long S, long long* out) {
+  if (nv != TREE::NV || nc != TREE::NC || ctype != TREE::CT) return 0;
+  if (!rtt::layout_fits<TREE>(topo)) return -2;
   if (with_cost)
-    count<NC, CT, true>(consts, n_consts, topo, ins, S, as_written, out);
+    count<TREE, true>(consts, n_consts, topo, ins, S, out);
   else
-    count<NC, CT, false>(consts, n_consts, topo, ins, S, as_written, out);
+    count<TREE, false>(consts, n_consts, topo, ins, S, out);
+  return 1;
 }
 }  // namespace
 
 extern "C" {
 
-// Operations of K6's function over S stages (nv 18, 13 joints: ANYmal's 4
-// point feet, nc 4, ctype 3, or the iCub lower half's 2 soles, nc 2,
-// ctype 6), inputs in the order of ops/chain.py, float64 on the host:
-// out[0] value operations, out[1] tangent operations.
-int rtt_chain_flops(int with_cost, int as_written, int nc, int ctype,
+// Operations of K6 over S stages for the trees of csrc/chain_stage.cuh
+// (nv 18: ANYmal's 4 point feet, nc 4, ctype 3, or the iCub lower half's 2
+// soles, nc 2, ctype 6; nv 35: the full iCub's 2 soles), inputs in the
+// order of ops/chain.py, float64 on the host: out[0] value operations,
+// out[1] tangent operations. Returns 0, -1 for another tree, -2 for a
+// chain layout past the tree's workspace.
+int rtt_chain_flops(int nv, int with_cost, int nc, int ctype,
                     const double* consts, int n_consts, const int* topo,
                     const double* const* ins, long long S, long long* out) {
-  if (nc == 4 && ctype == rtt::kPoint)
-    count_wc<4, rtt::kPoint>(with_cost, consts, n_consts, topo, ins, S,
-                             as_written != 0, out);
-  else if (nc == 2 && ctype == rtt::kSurface)
-    count_wc<2, rtt::kSurface>(with_cost, consts, n_consts, topo, ins, S,
-                               as_written != 0, out);
-  else
-    return -1;
-  return 0;
+  int rc = count_tree<rtt::AnymalFeet>(nv, with_cost, nc, ctype, consts,
+                                       n_consts, topo, ins, S, out);
+  if (!rc)
+    rc = count_tree<rtt::IcubLegSoles>(nv, with_cost, nc, ctype, consts,
+                                       n_consts, topo, ins, S, out);
+  if (!rc)
+    rc = count_tree<rtt::IcubSoles>(nv, with_cost, nc, ctype, consts,
+                                    n_consts, topo, ins, S, out);
+  return rc == 1 ? 0 : (rc == 0 ? -1 : rc);
 }
 
 }  // extern "C"

@@ -3,8 +3,17 @@
 // Replace robotoc_tpu ops/pallas_condense.py: _k1_kernel (launch :331),
 // _kc_kernel (:348), _k2_kernel (:377), _k3_kernel (:399).
 //
-// Design: one thread block per stage, the stage's blocks in shared memory,
-// threads over the entries of each output (csrc/condense_stage.cuh). The
+// Design: K1, K2 and K3 run one thread block per stage, the stage's blocks
+// in shared memory, threads over the entries of each output (csrc/
+// condense_stage.cuh). Kc runs a warp per stage and four stages a block:
+// its stage does about 0.2 us of work, too little to pay for a block and
+// its barriers, so each warp stages its own rows by 16-byte cp.async,
+// forms the upper triangle of its 30 x 30 sum in 3 x 3 register tiles and
+// writes the three output blocks back in 16-byte stores, with warp
+// barriers only (on "NVIDIA H100 80GB HBM3, 700.00 W", f32 device time,
+// chip_smoke.py's kernels phase: 0.010 ms at 20 rows and 2560 stages,
+// 0.015 ms at 34 rows and 3584, twice their bytes bounds and half the
+// time of torch.einsum on the same inputs). The
 // Pallas kernels put 128 stages across the TPU lanes and padded the stage
 // count with identity KKT blocks; here nothing is padded. Inputs and
 // outputs are batch-first row-major (S, d1, d2) tensors, so a block reads
@@ -19,7 +28,8 @@
 // the same nv, nu and nf with two 6-D surface contacts, so K1, K2 and K3
 // serve it as they are; its 2 x 17 wrench-cone rows need a second Kc
 // instance (the cone row count is Kc's template parameter): ~1.7 K values
-// per stage, ~25 MB for 3584 stages, still bytes-bound.
+// per stage, ~25 MB for 3584 stages, still bytes-bound (7.4 us at 3.35
+// TB/s; 4.8 us for the 20-row instance at 2560 stages).
 //
 // C interface: rtt_condense_k*(dtype, dims..., pointers..., S, stream)
 // returns 0 on success, -1 for an unsupported dtype/dims pair, else the
@@ -64,16 +74,22 @@ k1_kernel(const T* __restrict__ M, const T* __restrict__ J,
       smem<T>(), threadIdx.x, blockDim.x);
 }
 
+// Kc: a warp per stage, kKcWarps stages a block, each warp's workspace
+// its own slice of shared memory (KcStage)
+constexpr int kKcWarps = 4;
+
 template <typename T, int NV, int NF, int NC>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(32 * kKcWarps)
 kc_kernel(const T* __restrict__ dgdq, const T* __restrict__ dgdf,
           const T* __restrict__ d, T* __restrict__ Hqq, T* __restrict__ Hqf,
-          T* __restrict__ Hff) {
-  const long long s = blockIdx.x;
-  rtt::KcStage<T, NV, NF, NC>::run(
-      dgdq + s * NC * NV, dgdf + s * NC * NF, d + s * NC, Hqq + s * NV * NV,
-      Hqf + s * NV * NF, Hff + s * NF * NF, smem<T>(), threadIdx.x,
-      blockDim.x);
+          T* __restrict__ Hff, long long S) {
+  using K = rtt::KcStage<T, NV, NF, NC>;
+  const int warp = threadIdx.x / 32;
+  const long long s = static_cast<long long>(blockIdx.x) * kKcWarps + warp;
+  if (s >= S) return;   // the whole warp: its barriers are its own
+  K::run(dgdq + s * NC * NV, dgdf + s * NC * NF, d + s * NC,
+         Hqq + s * NV * NV, Hqf + s * NV * NF, Hff + s * NF * NF,
+         smem<T>() + K::WS * warp, threadIdx.x % 32, 32);
 }
 
 template <typename T, int NV, int NU, int NF>
@@ -152,9 +168,15 @@ template <typename T, int NG>
 int kc_typed(const void* dgdq, const void* dgdf, const void* d, void* Hqq,
              void* Hqf, void* Hff, long long S, void* stream) {
   using K = rtt::KcStage<T, 18, 12, NG>;
-  return launch<T, K::WS>(kc_kernel<T, 18, 12, NG>, S, stream, in<T>(dgdq),
-                          in<T>(dgdf), in<T>(d), out<T>(Hqq), out<T>(Hqf),
-                          out<T>(Hff));
+  auto kernel = kc_kernel<T, 18, 12, NG>;
+  const size_t bytes = sizeof(T) * K::WS * kKcWarps;
+  cudaError_t err = allow_smem(kernel, bytes);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const unsigned blocks = static_cast<unsigned>((S + kKcWarps - 1) / kKcWarps);
+  kernel<<<blocks, 32 * kKcWarps, bytes, static_cast<cudaStream_t>(stream)>>>(
+      in<T>(dgdq), in<T>(dgdf), in<T>(d), out<T>(Hqq), out<T>(Hqf),
+      out<T>(Hff), S);
+  return static_cast<int>(cudaGetLastError());
 }
 
 template <int NG>

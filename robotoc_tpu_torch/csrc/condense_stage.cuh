@@ -71,41 +71,85 @@ struct K1Stage {
   }
 };
 
-// Kc (_kc_kernel): cone Gauss-Newton blocks sum_r d_r dg_r (x) dg_r.
+// n rounded up to whole 16-byte runs of float or double (4 entries)
+constexpr int up4(int n) { return (n + 3) / 4 * 4; }
+
+// Kc (_kc_kernel): cone Gauss-Newton blocks sum_r d_r g_r g_r^T over the
+// NC cone rows g_r = [dgdq_r | dgdf_r] (NX = NV + NF wide): the NV x NV,
+// NV x NF and NF x NF blocks of the symmetric NX x NX sum. A team of nl
+// lanes works on one stage (a warp on the card, one lane on the host),
+// every barrier the team's:
+//  * the stage's rows and d, contiguous in device memory, are staged in
+//    its workspace by 16-byte cp.async copies;
+//  * the upper triangle of the sum in TB x TB tiles, a tile per lane at a
+//    time, the row factor d_r g_ri formed in registers; each entry and its
+//    mirror are written into the workspace's copy of the three outputs by
+//    the lane that computed it (the lower-left NF x NV block is no output);
+//  * the outputs leave in 16-byte stores, neighbouring lanes on
+//    neighbouring addresses.
 template <typename T, int NV, int NF, int NC>
 struct KcStage {
-  static constexpr int WS = NC * NV + NC * NF + NC;
+  static constexpr int NX = NV + NF, TB = 3;
+  static_assert(NV % TB == 0 && NF % TB == 0, "tiles split q and f");
+  static constexpr int NB = NX / TB, NQB = NV / TB;
+  static constexpr int NTILE = NB * (NB + 1) / 2;   // upper triangle
+  // workspace (scalars), every part 16-byte aligned in f32 and f64
+  static constexpr int O_GQ = 0, O_GF = up4(NC * NV), O_D = O_GF + up4(NC * NF);
+  static constexpr int O_HQQ = O_D + up4(NC), O_HQF = O_HQQ + up4(NV * NV);
+  static constexpr int O_HFF = O_HQF + up4(NV * NF);
+  static constexpr int WS = O_HFF + up4(NF * NF);
+
+  // entry (i, j) of the sum, i <= j, and its mirror, into the outputs
+  static RTT_HD void put(T* ws, int i, int j, T x) {
+    if (j < NV) {
+      ws[O_HQQ + i * NV + j] = x;
+      ws[O_HQQ + j * NV + i] = x;
+    } else if (i < NV) {
+      ws[O_HQF + i * NF + (j - NV)] = x;
+    } else {
+      ws[O_HFF + (i - NV) * NF + (j - NV)] = x;
+      ws[O_HFF + (j - NV) * NF + (i - NV)] = x;
+    }
+  }
 
   static RTT_HD void run(const T* dgdq, const T* dgdf, const T* dcone,
-                         T* Hqq, T* Hqf, T* Hff, T* ws, int tid, int nt) {
-    T* gq = ws;
-    T* gf = gq + NC * NV;
-    T* d = gf + NC * NF;
-    copy(gq, dgdq, NC * NV, tid, nt);
-    copy(gf, dgdf, NC * NF, tid, nt);
-    copy(d, dcone, NC, tid, nt);
-    block_sync();
-    for (int x = tid; x < NV * NV; x += nt) {
-      const int i = x / NV, j = x % NV;
-      T acc = T(0);
-      for (int r = 0; r < NC; ++r)
-        acc += (d[r] * gq[r * NV + i]) * gq[r * NV + j];
-      Hqq[x] = acc;
+                         T* Hqq, T* Hqf, T* Hff, T* ws, int lane, int nl) {
+    async_copy(ws + O_GQ, dgdq, NC * NV, lane, nl);
+    async_copy(ws + O_GF, dgdf, NC * NF, lane, nl);
+    async_copy(ws + O_D, dcone, NC, lane, nl);
+    async_commit();
+    async_wait_all();
+    warp_sync();
+    const T* d = ws + O_D;
+    for (int t = lane; t < NTILE; t += nl) {
+      int I = 0, rem = t;   // tile t of the upper triangle, row by row
+      while (rem >= NB - I) {
+        rem -= NB - I;
+        ++I;
+      }
+      const int J = I + rem;
+      const T* pa = I < NQB ? ws + O_GQ + TB * I : ws + O_GF + TB * (I - NQB);
+      const T* pb = J < NQB ? ws + O_GQ + TB * J : ws + O_GF + TB * (J - NQB);
+      const int sa = I < NQB ? NV : NF, sb = J < NQB ? NV : NF;
+      T acc[TB][TB];
+      for (int m = 0; m < TB; ++m)
+        for (int n = 0; n < TB; ++n) acc[m][n] = T(0);
+      for (int r = 0; r < NC; ++r) {
+        const T dr = d[r];
+        T a[TB], b[TB];
+        for (int m = 0; m < TB; ++m) a[m] = dr * pa[r * sa + m];
+        for (int n = 0; n < TB; ++n) b[n] = pb[r * sb + n];
+        for (int m = 0; m < TB; ++m)
+          for (int n = 0; n < TB; ++n) acc[m][n] += a[m] * b[n];
+      }
+      for (int m = 0; m < TB; ++m)
+        for (int n = (I == J ? m : 0); n < TB; ++n)
+          put(ws, TB * I + m, TB * J + n, acc[m][n]);
     }
-    for (int x = tid; x < NV * NF; x += nt) {
-      const int i = x / NF, j = x % NF;
-      T acc = T(0);
-      for (int r = 0; r < NC; ++r)
-        acc += (d[r] * gq[r * NV + i]) * gf[r * NF + j];
-      Hqf[x] = acc;
-    }
-    for (int x = tid; x < NF * NF; x += nt) {
-      const int i = x / NF, j = x % NF;
-      T acc = T(0);
-      for (int r = 0; r < NC; ++r)
-        acc += (d[r] * gf[r * NF + i]) * gf[r * NF + j];
-      Hff[x] = acc;
-    }
+    warp_sync();
+    store_wide(Hqq, ws + O_HQQ, NV * NV, lane, nl);
+    store_wide(Hqf, ws + O_HQF, NV * NF, lane, nl);
+    store_wide(Hff, ws + O_HFF, NF * NF, lane, nl);
   }
 };
 

@@ -54,14 +54,32 @@ void riccati(int Bn, int N, const double* A, const double* B,
            ws.data(), 0, 1);
   }
 }
-template <int NCC, int CT, bool WC>
+
+// K6's body on S stages, one lane a stage
+template <typename TREE, bool WC>
 void chain(const double* consts, const int* topo, const double* const* ins,
            double* const* outs, long long S) {
-  using K = rtt::ChainStage<double, NV, 13, NCC, WC, CT>;
+  using K = rtt::ChainStage<double, TREE, WC>;
   std::vector<double> ws(K::WS);
   for (long long s = 0; s < S; ++s)
     K::run(consts, topo, ins, outs, s, ws.data(), 0, 1);
 }
+
+// 1 when TREE is (nv, nc, ctype) and its layout fits (-2 when it does
+// not), 0 for another tree
+template <typename TREE>
+int chain_tree(int nv, int with_cost, int nc, int ctype,
+               const double* consts, const int* topo,
+               const double* const* ins, double* const* outs, long long S) {
+  if (nv != TREE::NV || nc != TREE::NC || ctype != TREE::CT) return 0;
+  if (!rtt::layout_fits<TREE>(topo)) return -2;
+  if (with_cost)
+    chain<TREE, true>(consts, topo, ins, outs, S);
+  else
+    chain<TREE, false>(consts, topo, ins, outs, S);
+  return 1;
+}
+
 template <int NG>
 void kc(long long S, const double* dgdq, const double* dgdf, const double* d,
         double* Hqq, double* Hqf, double* Hff) {
@@ -184,26 +202,24 @@ int rtt_host_riccati_bwd(int nf, int Bn, int N, const double* A,
   return 0;
 }
 
-// K6 on S stages (nv 18, 13 joints: ANYmal's 4 point feet, nc 4, ctype 3,
-// or the iCub lower half's 2 soles, nc 2, ctype 6); ins/outs in the order
-// of ops/chain.py.
-int rtt_host_chain(int with_cost, int nc, int ctype, const double* consts,
-                   const int* topo, const double* const* ins,
-                   double* const* outs, long long S) {
-  if (nc == 4 && ctype == rtt::kPoint) {
-    if (with_cost)
-      chain<4, rtt::kPoint, true>(consts, topo, ins, outs, S);
-    else
-      chain<4, rtt::kPoint, false>(consts, topo, ins, outs, S);
-  } else if (nc == 2 && ctype == rtt::kSurface) {
-    if (with_cost)
-      chain<2, rtt::kSurface, true>(consts, topo, ins, outs, S);
-    else
-      chain<2, rtt::kSurface, false>(consts, topo, ins, outs, S);
-  } else {
-    return -1;
-  }
-  return 0;
+// K6 on S stages for the trees of csrc/chain_stage.cuh (nv 18: ANYmal's 4
+// point feet, nc 4, ctype 3, or the iCub lower half's 2 soles, nc 2, ctype
+// 6; nv 35: the full iCub's 2 soles); ins/outs in the order of
+// ops/chain.py. Returns 0, -1 for another tree, -2 for a chain layout
+// past the tree's workspace.
+int rtt_host_chain(int nv, int with_cost, int nc, int ctype,
+                   const double* consts, const int* topo,
+                   const double* const* ins, double* const* outs,
+                   long long S) {
+  int rc = chain_tree<rtt::AnymalFeet>(nv, with_cost, nc, ctype, consts,
+                                       topo, ins, outs, S);
+  if (!rc)
+    rc = chain_tree<rtt::IcubLegSoles>(nv, with_cost, nc, ctype, consts,
+                                       topo, ins, outs, S);
+  if (!rc)
+    rc = chain_tree<rtt::IcubSoles>(nv, with_cost, nc, ctype, consts, topo,
+                                    ins, outs, S);
+  return rc == 1 ? 0 : (rc == 0 ? -1 : rc);
 }
 
 }  // extern "C"

@@ -27,6 +27,13 @@ RTT_HD void block_sync() {
 #endif
 }
 
+// Barrier of one warp: the team of the warp-per-stage kernels (Kc, K6).
+RTT_HD void warp_sync() {
+#if defined(__CUDA_ARCH__)
+  __syncwarp();
+#endif
+}
+
 // C[i,j] = D[i,j] + alpha * sum_k op(A)[i,k] op(B)[k,j]
 // op(A) is M x K (A stored K x M when TA), op(B) is K x N (B stored N x K
 // when TB). D may be nullptr (no addend) or alias C (in-place update: each
@@ -218,6 +225,55 @@ RTT_HD void async_wait_all() {
 #if defined(__CUDA_ARCH__)
   asm volatile("cp.async.wait_group 0;\n" ::: "memory");
 #endif
+}
+
+// n contiguous entries from device memory into shared memory without
+// waiting: cp.async, 16 bytes a copy when both sides are 16-byte aligned
+// and n fills whole copies, else one element a copy. The host copies at
+// once. Pair with async_commit(), async_wait_all() and a barrier.
+template <typename T>
+RTT_HD void async_copy(T* dst, const T* src, int n, int tid, int nt) {
+#if defined(__CUDA_ARCH__)
+  constexpr int V = 16 / sizeof(T);
+  if (n % V == 0
+      && ((reinterpret_cast<unsigned long long>(dst)
+           | reinterpret_cast<unsigned long long>(src)) % 16) == 0) {
+    for (int e = tid; e < n / V; e += nt) {
+      const unsigned d = static_cast<unsigned>(
+          __cvta_generic_to_shared(dst + e * V));
+      asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d),
+                   "l"(src + e * V));
+    }
+  } else {
+    for (int e = tid; e < n; e += nt) {
+      const unsigned d = static_cast<unsigned>(
+          __cvta_generic_to_shared(dst + e));
+      asm volatile("cp.async.ca.shared.global [%0], [%1], %2;\n" ::"r"(d),
+                   "l"(src + e), "n"(sizeof(T)));
+    }
+  }
+#else
+  for (int e = tid; e < n; e += nt) dst[e] = src[e];
+#endif
+}
+
+// dst[i] = src[i] for n contiguous entries, 16 bytes a store on the card
+// when both sides are 16-byte aligned and n fills whole stores (a
+// coalesced write of a block staged in shared memory).
+template <typename T>
+RTT_HD void store_wide(T* dst, const T* src, int n, int tid, int nt) {
+#if defined(__CUDA_ARCH__)
+  constexpr int V = 16 / sizeof(T);
+  if (n % V == 0
+      && ((reinterpret_cast<unsigned long long>(dst)
+           | reinterpret_cast<unsigned long long>(src)) % 16) == 0) {
+    for (int e = tid; e < n / V; e += nt)
+      reinterpret_cast<float4*>(dst)[e] =
+          reinterpret_cast<const float4*>(src)[e];
+    return;
+  }
+#endif
+  for (int e = tid; e < n; e += nt) dst[e] = src[e];
 }
 
 // dst[i] = src[i] for n entries (a cooperative load or store).

@@ -29,7 +29,7 @@ import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "kernels"
-SOURCES = ("condense", "riccati_bwd", "chain")
+SOURCES = ("condense", "riccati_bwd", "chain", "chain_icub")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 GXX_FLAGS = ("-O2", "-std=c++17", "-shared", "-fPIC")

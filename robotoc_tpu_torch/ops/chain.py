@@ -9,10 +9,12 @@ pallas_chain.py:481, launch :1110) that propagates structured forward-mode
 tangents by hand. With `with_cost` the kernel also folds the gait cost
 stack's Gauss-Newton blocks and the Lie state-equation base blocks. Here
 it is the hand-written CUDA kernel csrc/chain.cu (per-stage arithmetic in
-csrc/chain_stage.cuh); `chain_plain` is the plain PyTorch version: the
-port's own composition of `fused_stage_derivatives(with_task=True)`, the
-stack's stage quadratization and `se.linearize_base`, reshaped to the
-kernel's outputs.
+csrc/chain_stage.cuh, the tree's chain layout read from the model by
+`chain_layout`; the full iCub's instance in csrc/chain_icub.cu);
+`chain_plain` is the plain PyTorch version: the port's own composition
+of `fused_stage_derivatives(with_task=True)`, the stack's stage
+quadratization and `se.linearize_base`, reshaped to the kernel's
+outputs.
 
 Inputs and outputs are batch-first (S, ...), S = B * (stages per
 scenario) flattened, with the JAX kernel's names and layouts (_OUTS,
@@ -39,6 +41,7 @@ from ..costs.task_cost import (BaseRotationCost, MultiFrameTaskCost,
 from ..dynamics import state_equation as se
 from ..models import contacts as ct
 from ..models import robot as rm
+from ..models import urdf
 
 _OUTS = ("tau", "dtau_dq", "dtau_dv", "M", "C", "dCdq", "dCdv", "J",
          "g", "dgdq", "dgdf", "task", "dtask")
@@ -48,8 +51,13 @@ _COST_OUTS = ("cq_cost", "cq_lq", "cq_lv", "cq_la", "cq_lu", "cq_Wq",
 # q/v/a/u/task/base-rotation weights, q_ref, v_ref, q_next
 N_COST_IN = 14
 # (nv, nj, nc, contact type) the CUDA library is instantiated for
-KERNEL_DIMS = frozenset({(18, 13, 4, ct.POINT),      # ANYmal, four feet
-                         (18, 13, 2, ct.SURFACE)})   # iCub lower half, soles
+# (csrc/chain_stage.cuh, ChainTree, which also sets the capacities of each
+# tree's chain layout: the launch refuses a layout past them)
+KERNEL_DIMS = ((18, 13, 4, ct.POINT),      # ANYmal, four feet
+               (18, 13, 2, ct.SURFACE),    # iCub lower half, soles
+               (35, 30, 2, ct.SURFACE))    # full iCub, soles
+# the library (csrc/<name>.cu) of each instantiation; "chain" otherwise
+KERNEL_LIBRARY = {(35, 30, 2, ct.SURFACE): "chain_icub"}
 
 
 class ChainMeta(NamedTuple):
@@ -88,6 +96,75 @@ def chain_supported(model, contacts) -> bool:
     their children."""
     return (contacts.n_contacts > 0 and len(set(contacts.types)) == 1
             and all(p < i for i, p in enumerate(model.parents)))
+
+
+class ChainLayout(NamedTuple):
+    """The tree cut into chains, as K6 reads it (csrc/chain_math.cuh,
+    ChainModel): per chain its first joint, length, parent joint (0: the
+    base), level (chains between it and the base) and the number of chains
+    below it (they follow it in order); per contact the chain its frame
+    sits on (-1: the base); per joint its chain (-1: the base)."""
+    first: tuple
+    length: tuple
+    parent: tuple
+    level: tuple
+    n_desc: tuple
+    contact_chain: tuple
+    joint_chain: tuple
+
+
+def chain_layout(model, contacts) -> ChainLayout:
+    """The chain layout of a free base (joint 0) carrying revolute joints
+    numbered depth first (joint j at velocity index j + 5): a chain is a
+    run of consecutive joints, each the only child of the one before, that
+    starts at a child of the base or of a branch point (a joint with
+    several children) and ends at a leaf or a branch point, so that chains
+    hang only from the last joint of another. Raises ValueError for a tree
+    K6 does not take."""
+    par, jt, nj = list(model.parents), list(model.jtypes), model.nj
+    if (nj < 2 or par[0] != -1 or jt[0] != urdf.FREE
+            or any(t != urdf.REVOLUTE for t in jt[1:])
+            or any(model.v_offs[j] != j + 5 or model.q_offs[j] != j + 6
+                   for j in range(1, nj))):
+        raise ValueError("chain: the kernel takes a free base (joint 0) "
+                         "carrying revolute joints, joint j at velocity "
+                         "index j + 5")
+    kids = [sum(p == j for p in par) for j in range(nj)]
+    first, length, parent, level = [], [], [], []
+    joint_chain = [-1] * nj
+    for j in range(1, nj):
+        p = par[j]
+        if p == 0 or p != j - 1 or kids[p] > 1:   # a chain starts at j
+            if p and j - 1 != p and kids[p] == 1:
+                raise ValueError("chain: joints are not numbered depth "
+                                 "first")
+            first.append(j)
+            length.append(0)
+            parent.append(p)
+            level.append(0 if p == 0 else level[joint_chain[p]] + 1)
+        length[-1] += 1
+        joint_chain[j] = len(first) - 1
+    up = [-1 if p == 0 else joint_chain[p] for p in parent]
+    n_desc = []
+    for c in range(len(first)):
+        below = [d for d in range(len(first)) if d != c and _above(up, c, d)]
+        if below != list(range(c + 1, c + 1 + len(below))):
+            raise ValueError("chain: joints are not numbered depth first")
+        n_desc.append(len(below))
+    contact_chain = [joint_chain[model.frame_parents[f]]
+                     for f in contacts.frame_ids]
+    return ChainLayout(tuple(first), tuple(length), tuple(parent),
+                       tuple(level), tuple(n_desc), tuple(contact_chain),
+                       tuple(joint_chain))
+
+
+def _above(up, c, d):
+    """True when chain c lies on the path from chain d to the base."""
+    while d >= 0:
+        d = up[d]
+        if d == c:
+            return True
+    return False
 
 
 def cost_fold_supported(model, costs, contacts) -> bool:
@@ -222,8 +299,8 @@ def chain_plain(model, contacts, q, v, a, f_eff, fric, p_ref, R_ref=None,
 # ---------------------------------------------------------------------------
 
 def model_tables(model, contacts, dtype, device):
-    """The kernel's model constants (dtype) and topology (int32), the
-    layouts of csrc/chain_stage.cuh::ChainModel."""
+    """The kernel's model constants (dtype) and topology (int32, the chain
+    layout included), the layouts of csrc/chain_math.cuh::ChainModel."""
     fids = list(contacts.frame_ids)
     npf = lambda x: np.asarray(x.detach().cpu().double())   # noqa: E731
     per_joint = np.concatenate([
@@ -239,9 +316,15 @@ def model_tables(model, contacts, dtype, device):
                              [float(npf(model.mass).sum())]])
     levels = rm.chain_levels(model)
     starts = np.cumsum([0] + [len(idxs) for _, idxs in levels])
+    lay = chain_layout(model, contacts)
+    per_chain = np.zeros((model.nj, 5), dtype=np.int64)
+    per_chain[:len(lay.first)] = np.stack(
+        [lay.first, lay.length, lay.parent, lay.level, lay.n_desc], axis=1)
     topo = np.concatenate([
         model.parents, model.jtypes, model.q_offs, model.v_offs,
-        [model.frame_parents[f] for f in fids], [len(levels)], starts,
+        [model.frame_parents[f] for f in fids],
+        [len(lay.first), max(lay.level) + 1], per_chain.reshape(-1),
+        lay.contact_chain, lay.joint_chain, [len(levels)], starts,
         [j for _, idxs in levels for j in idxs]]).astype(np.int32)
     return (torch.as_tensor(consts, dtype=dtype, device=device),
             torch.as_tensor(topo, device=device))
@@ -251,20 +334,25 @@ _TABLES = {}
 
 
 def _tables(model, contacts, dtype, device):
+    """model_tables on the device, and the chain layout's longest chain
+    and number of levels, computed once per (model, contacts, dtype,
+    device)."""
     key = (id(model), id(contacts), dtype, str(device))
     hit = _TABLES.get(key)
     if hit is None or hit[0] is not model or hit[1] is not contacts:
+        lay = chain_layout(model, contacts)
         hit = (model, contacts) + model_tables(model, contacts, dtype,
-                                               device)
+                                               device) + (
+            (max(lay.length), max(lay.level) + 1),)
         _TABLES[key] = hit
-    return hit[2], hit[3]
+    return hit[2:]
 
 
-def _lib():
-    lib = kernels.library("chain")
+def _lib(meta):
+    lib = kernels.library(KERNEL_LIBRARY.get(_dims(meta), "chain"))
     if not getattr(lib, "_rtt_typed", False):
         P, I = ctypes.c_void_p, ctypes.c_int
-        lib.rtt_chain.argtypes = [I] * 6 + [P] * 4 + [ctypes.c_longlong, P]
+        lib.rtt_chain.argtypes = [I] * 8 + [P] * 4 + [ctypes.c_longlong, P]
         lib.rtt_chain.restype = I
         lib._rtt_typed = True
     return lib
@@ -287,7 +375,8 @@ def chain(model, contacts, q, v, a, f_eff, fric, p_ref, R_ref=None,
         R_ref = _identity_R_ref(q, meta.nc)
     ins = [q, v, a, f_eff, fric, p_ref, R_ref] + list(cost_ins)
     kernels.check_args("chain", ins, [(S,) + s for s in _in_shapes(meta)])
-    consts, topo = _tables(model, contacts, q.dtype, q.device)
+    consts, topo, (max_len, n_levels) = _tables(model, contacts, q.dtype,
+                                                q.device)
     shapes = _out_shapes(meta)
     names = _OUTS + (_COST_OUTS if meta.with_cost else ())
     outs = {n: torch.empty((S,) + shapes[n], dtype=q.dtype, device=q.device)
@@ -295,14 +384,18 @@ def chain(model, contacts, q, v, a, f_eff, fric, p_ref, R_ref=None,
     in_ptrs = (ctypes.c_void_p * len(ins))(*[t.data_ptr() for t in ins])
     out_ptrs = (ctypes.c_void_p * len(names))(
         *[outs[n].data_ptr() for n in names])
-    rc = _lib().rtt_chain(kernels.DTYPE_CODE[q.dtype], int(meta.with_cost),
-                          meta.nv, meta.nj, meta.nc, meta.ctype,
-                          kernels.ptr(consts), kernels.ptr(topo), in_ptrs,
-                          out_ptrs, S, kernels.stream(q))
+    rc = _lib(meta).rtt_chain(
+        kernels.DTYPE_CODE[q.dtype], int(meta.with_cost), meta.nv, meta.nj,
+        meta.nc, meta.ctype, max_len, n_levels, kernels.ptr(consts),
+        kernels.ptr(topo), in_ptrs, out_ptrs, S, kernels.stream(q))
     if rc == -1:
         raise ValueError(f"chain: no kernel for (nv, nj, nc, type) = "
                          f"{_dims(meta)} / {q.dtype}; built for "
-                         f"{sorted(KERNEL_DIMS)}")
+                         f"{KERNEL_DIMS}")
+    if rc == -2:
+        raise ValueError(f"chain: chains of up to {max_len} joints on "
+                         f"{n_levels} levels do not fit the kernel for "
+                         f"{_dims(meta)} (csrc/chain_stage.cuh, ChainTree)")
     if rc != 0:
         raise RuntimeError(f"chain: CUDA launch failed (cudaError {rc})")
     chain.launches += 1
@@ -317,15 +410,14 @@ def _dims(meta: ChainMeta):
 
 
 def op_count(model, contacts, q, v, a, f_eff, fric, p_ref, R_ref=None,
-             *cost_ins, as_written=False):
-    """(value, tangent) operations of K6's function on these S stages:
-    values once per stage, tangents only where they are not structural
-    zeros (csrc/chain_flops.cpp, built with g++). With as_written, every
-    operation the kernel does, repeated values and zeros included. Inputs
-    as for `chain`, on any device."""
+             *cost_ins):
+    """(value, tangent) operations of K6 on these S stages: its body's
+    arithmetic, operations on structural zeros left out
+    (csrc/chain_flops.cpp, built with g++). Inputs as for `chain`, on any
+    device."""
     meta = chain_meta(model, contacts, with_cost=len(cost_ins) == N_COST_IN)
     if _dims(meta) not in KERNEL_DIMS:
-        raise ValueError(f"op_count: built for {sorted(KERNEL_DIMS)}")
+        raise ValueError(f"op_count: built for {KERNEL_DIMS}")
     if R_ref is None:
         R_ref = _identity_R_ref(q, meta.nc)
     ins = [t.detach().to("cpu", torch.float64).contiguous()
@@ -336,7 +428,7 @@ def op_count(model, contacts, q, v, a, f_eff, fric, p_ref, R_ref=None,
     lib.rtt_chain_flops.argtypes = [I, I, I, I, P, I, P, P,
                                     ctypes.c_longlong, P]
     out = (ctypes.c_longlong * 2)()
-    rc = lib.rtt_chain_flops(int(meta.with_cost), int(as_written), meta.nc,
+    rc = lib.rtt_chain_flops(meta.nv, int(meta.with_cost), meta.nc,
                              meta.ctype, P(consts.data_ptr()),
                              consts.numel(), P(topo.data_ptr()),
                              (P * len(ins))(*[t.data_ptr() for t in ins]),

@@ -223,3 +223,73 @@ def fleet(solver, grid, q0, v0, B: int, seed: int = 0,
     dq = torch.as_tensor(scale * rng.standard_normal((B, m.nv)), **kw)
     q0s = rm.integrate(m, q0.expand(B, m.nq), dq)
     return sol, q0s, v0.expand(B, m.nv).contiguous()
+
+
+def icub_soles(dtype=torch.float64, device=None):
+    """The full iCub (nv 35: two legs and a torso whose last joint carries
+    both arms) on surface contacts at both soles (17-row wrench cones on a
+    0.1 x 0.05 rectangle): the tree of the chain kernel K6's nv 35
+    instance. No MPC path runs it; it is checked kernel against plain.
+    Returns (model, contacts)."""
+    m = load_robot("icub", dtype=dtype, device=device)
+    contacts = make_contacts(m, ("l_sole", "r_sole"),
+                             types=(SURFACE, SURFACE), rect=(0.1, 0.05))
+    return m, contacts
+
+
+def chain_stages(model, contacts, S: int, seed: int = 0,
+                 with_cost: bool = False):
+    """Seeded inputs of the chain kernel K6 for S stages, in the order of
+    ops/chain.chain (numpy seed): configurations moved from neutral by
+    0.3 N(0, 1) in the tangent space, velocities and accelerations N(0, 1),
+    contact forces 30 N(0, 1), friction 0.5 + 0.3 U(0, 1), p_ref 0.3
+    N(0, 1), R_ref each contact frame's rotation turned by exp(0.2 N(0,
+    1)) (references near the feet, as a walk sets them: the residual's
+    rotation log stays clear of its branch cut at pi, where two correct
+    evaluations may differ by 2 pi; the full iCub's soles sit near pi
+    from the identity). With with_cost also the
+    cost fold's 14 inputs: u N(0, 1), dt 0.02 + 0.03 U, task references
+    0.3 N, task activity 0 or 1, the base-rotation reference the base
+    quaternion of q moved by 0.1 N (a rotation log far from pi, where it is
+    ill-conditioned), positive weights 0.1 + U, q_ref moved from neutral by
+    0.1 N, v_ref 0.3 N and q_next moved from q by 0.05 N. Returns (args, cost), lists of
+    (S, ...) tensors."""
+    rng = np.random.default_rng(seed)
+    kw = dict(dtype=model.dtype, device=model.device)
+    nc, nv = contacts.n_contacts, model.nv
+
+    def t(x):
+        return torch.as_tensor(x, **kw).contiguous()
+
+    def moved(q, scale):
+        return rm.integrate(model, q, t(scale * rng.standard_normal(
+            (S, nv))))
+
+    q = moved(rm.neutral(model).expand(S, model.nq), 0.3)
+    w = t(0.2 * rng.standard_normal((S, nc, 3)))
+    from .ops import lie
+    Rw, pw = rm.forward_kinematics(model, q)
+    R_frame = torch.stack([rm.frame_placement(model, f, Rw, pw)[0]
+                           for f in contacts.frame_ids], dim=1)
+    args = [q, t(rng.standard_normal((S, nv))),
+            t(rng.standard_normal((S, nv))),
+            t(30.0 * rng.standard_normal((S, contacts.max_dimf))),
+            t(0.5 + 0.3 * rng.uniform(size=(S, nc))),
+            t(0.3 * rng.standard_normal((S, nc, 3))),
+            (R_frame @ lie.so3_exp(w)).contiguous()]
+    if not with_cost:
+        return args, []
+    nu, nt = model.dimu, 3 * nc + 3
+
+    def weight(n):
+        return t(0.1 + rng.uniform(size=(S, n)))
+
+    cost = [t(rng.standard_normal((S, nu))),
+            t(0.02 + 0.03 * rng.uniform(size=(S, 1))),
+            t(0.3 * rng.standard_normal((S, nt))),
+            t((rng.uniform(size=(S, nt)) < 0.5).astype(float)),
+            moved(q, 0.1)[:, 3:7].contiguous(),
+            weight(nv), weight(nv), weight(nv), weight(nu), weight(nt),
+            weight(3), moved(rm.neutral(model).expand(S, model.nq), 0.1),
+            t(0.3 * rng.standard_normal((S, nv))), moved(q, 0.05)]
+    return args, cost

@@ -1,0 +1,224 @@
+"""The chain kernel K6's layout table and its full-iCub instance on the CPU.
+
+K6 reads its chain layout from the model (ops/chain.chain_layout, the table
+csrc/chain_math.cuh's ChainModel reads). The full iCub (nv 35: two legs and
+a torso whose last joint carries both arms) on surface contacts at both
+soles (rect 0.1 x 0.05, the setup of tests/test_pallas_chain.py) is the
+tree that is not a star; its stages are made from numpy seeds
+(problems.chain_stages):
+  * the layout table against the model's tree, for the three trees K6 is
+    built for, and the refusals of trees it does not take; the host build
+    takes each tree's layout and refuses one past its workspace;
+  * chain_plain against the JAX package's XLA fused_stage_derivatives
+    (with_task): 1e-9 of each output's max-abs (at least one);
+  * the g++ build of K6's arithmetic for the nv 35 tree
+    (csrc/chain_stage.cuh, IcubSoles) against chain_plain, without and
+    with the cost fold: 1e-10; its operation count.
+"""
+import ctypes
+import dataclasses
+import shutil
+
+import numpy as np
+import pytest
+import torch
+
+import jax
+import jax.numpy as jnp
+
+from robotoc_tpu.models import contacts as jct
+from robotoc_tpu.models import load_robot as jload
+from robotoc_tpu_torch import kernels, problems
+from robotoc_tpu_torch.models import load_robot
+from robotoc_tpu_torch.models.contacts import SURFACE, make_contacts
+from robotoc_tpu_torch.ops import chain as chn
+
+S = 4
+
+
+@pytest.fixture(scope="module")
+def icub():
+    return problems.icub_soles(device="cpu")
+
+
+def _chains_by_walk(model):
+    """Chains from the parents alone: a new chain at every child of the
+    base or of a joint with several children, or whose parent is not the
+    joint before it."""
+    par = list(model.parents)
+    kids = [par.count(j) for j in range(model.nj)]
+    chains = []
+    for j in range(1, model.nj):
+        if par[j] == 0 or par[j] != j - 1 or kids[par[j]] > 1:
+            chains.append([j])
+        else:
+            chains[-1].append(j)
+    return chains
+
+
+def _tree(name):
+    model = load_robot(name, device="cpu")
+    if name == "anymal":
+        return model, make_contacts(model, ("LF_FOOT", "LH_FOOT", "RF_FOOT",
+                                            "RH_FOOT"))
+    return model, make_contacts(model, ("l_sole", "r_sole"),
+                                types=(SURFACE, SURFACE))
+
+
+def _host_rc(host, model, contacts):
+    """rtt_host_chain on no stages: 0 when the library takes the tree and
+    its layout."""
+    consts, topo = chn.model_tables(model, contacts, torch.float64, "cpu")
+    P = ctypes.c_void_p
+    return host.rtt_host_chain(model.nv, 0, contacts.n_contacts,
+                               contacts.types[0], P(consts.data_ptr()),
+                               P(topo.data_ptr()), (P * 7)(), (P * 13)(), 0)
+
+
+@pytest.mark.parametrize("name", ["anymal", "icub_lower_half", "icub"])
+def test_layout_matches_the_tree(name, host):
+    model, contacts = _tree(name)
+    lay = chn.chain_layout(model, contacts)
+    par = list(model.parents)
+    chains = _chains_by_walk(model)
+    assert [list(range(f, f + n)) for f, n in zip(lay.first, lay.length)
+            ] == chains
+    for c, joints in enumerate(chains):
+        assert lay.parent[c] == par[joints[0]]
+        assert all(lay.joint_chain[j] == c for j in joints)
+        # the level counts the chains between a chain and the base; the
+        # chains below one follow it in order
+        up, lev = lay.parent[c], 0
+        while up != 0:
+            lev, up = lev + 1, par[lay.first[lay.joint_chain[up]]]
+        assert lay.level[c] == lev
+        below = [d for d in range(len(chains)) if d != c and any(
+            j in chains[c] for j in _path(par, chains[d][0]))]
+        assert below == list(range(c + 1, c + 1 + lay.n_desc[c]))
+        # a chain hangs from the last joint of the chain above it
+        if lay.parent[c]:
+            assert chains[lay.joint_chain[lay.parent[c]]][-1] == lay.parent[c]
+    assert lay.joint_chain[0] == -1
+    for k, fid in enumerate(contacts.frame_ids):
+        assert lay.contact_chain[k] == lay.joint_chain[model.frame_parents[fid]]
+    want = {"anymal": ((3,) * 4, (0,) * 4),
+            "icub_lower_half": ((6, 6), (0, 0)),
+            "icub": ((6, 6, 3, 7, 7), (0, 0, 0, 1, 1))}[name]
+    assert (lay.length, lay.level) == want
+    dims = (model.nv, model.nj, contacts.n_contacts, contacts.types[0])
+    assert dims in chn.KERNEL_DIMS
+    assert _host_rc(host, model, contacts) == 0
+
+
+@pytest.mark.parametrize("name", ["anymal", "icub_lower_half", "icub"])
+def test_host_build_refuses_a_layout_past_its_workspace(name, host):
+    """The same joints hung as one serial chain: longer than the tree's
+    workspace holds (csrc/chain_stage.cuh, ChainTree), which the host
+    build and the operation count refuse (-2), as the card's launch does."""
+    model, contacts = _tree(name)
+    serial = dataclasses.replace(model, parents=(-1,) + tuple(
+        range(model.nj - 1)))
+    assert chn.chain_layout(serial, contacts).length == (model.nj - 1,)
+    assert _host_rc(host, serial, contacts) == -2
+    args, _ = problems.chain_stages(model, contacts, 1, seed=1)
+    with pytest.raises(ValueError, match="no count"):
+        chn.op_count(serial, contacts, *args)
+
+
+def _path(par, j):
+    """Joint j and the joints above it, up to the base."""
+    out = []
+    while j > 0:
+        out.append(j)
+        j = par[j]
+    return out
+
+
+def test_layout_refuses_other_trees(icub):
+    model, contacts = icub
+    # numbered breadth first: the torso's two arms interleaved
+    par = list(model.parents)
+    order = list(range(16)) + [j for pair in zip(range(16, 23),
+                                                 range(23, 30))
+                               for j in pair]
+    new = {old: i for i, old in enumerate(order)}
+    bad = dataclasses.replace(model, parents=tuple(
+        -1 if par[o] < 0 else new[par[o]] for o in order))
+    with pytest.raises(ValueError, match="depth first"):
+        chn.chain_layout(bad, contacts)
+    fixed = dataclasses.replace(model, jtypes=(0,) * model.nj)
+    with pytest.raises(ValueError, match="revolute"):
+        chn.chain_layout(fixed, contacts)
+
+
+def test_chain_plain_matches_xla(icub):
+    model, contacts = icub
+    jm = jload("icub")
+    jc = jct.make_contacts(jm, ("l_sole", "r_sole"),
+                           types=(jct.SURFACE, jct.SURFACE), rect=(0.1, 0.05))
+    args, _ = problems.chain_stages(model, contacts, S, seed=2)
+    got = chn.chain_plain(model, contacts, *args)
+
+    def ref_one(q, v, a, f, fr, pr, Rr):
+        ((tau, C, g, dgdf), (dtq, dtv, M), (dCq, dCv, J), dgdq,
+         (task, dtask)) = jct.fused_stage_derivatives(
+            jm, jc, q, v, a, f, fr, pr, Rr, with_task=True)
+        return dict(tau=tau, dtau_dq=dtq, dtau_dv=dtv, M=M, C=C, dCdq=dCq,
+                    dCdv=dCv, J=J, g=g, dgdq=dgdq, dgdf=dgdf, task=task,
+                    dtask=dtask)
+
+    ref = jax.jit(jax.vmap(ref_one))(*[jnp.asarray(x.numpy()) for x in args])
+    for name in chn._OUTS:
+        want = np.asarray(ref[name])
+        err = float(np.abs(got[name].numpy() - want).max())
+        assert err <= 1e-9 * max(1.0, float(np.abs(want).max())), name
+
+
+@pytest.fixture(scope="module")
+def host():
+    if shutil.which("g++") is None:
+        pytest.skip("g++ is not installed")
+    lib = kernels.host_library()
+    P, I = ctypes.c_void_p, ctypes.c_int
+    lib.rtt_host_chain.argtypes = [I, I, I, I, P, P, P, P, ctypes.c_longlong]
+    lib.rtt_host_chain.restype = I
+    return lib
+
+
+@pytest.mark.parametrize("with_cost", [False, True])
+def test_host_build_matches_chain_plain(icub, host, with_cost):
+    """K6's body for the nv 35 tree against chain_plain, float64: 1e-10."""
+    model, contacts = icub
+    args, cost = problems.chain_stages(model, contacts, S, seed=3,
+                                       with_cost=with_cost)
+    want = chn.chain_plain(model, contacts, *args, *cost)
+    names = chn._OUTS + (chn._COST_OUTS if with_cost else ())
+    got = {n: torch.full(want[n].shape, float("nan"), dtype=torch.float64)
+           for n in names}
+    consts, topo = chn.model_tables(model, contacts, torch.float64, "cpu")
+    ins = args + cost
+    P = ctypes.c_void_p
+    rc = host.rtt_host_chain(
+        model.nv, int(with_cost), contacts.n_contacts, SURFACE,
+        P(consts.data_ptr()), P(topo.data_ptr()),
+        (P * len(ins))(*[t.data_ptr() for t in ins]),
+        (P * len(names))(*[got[n].data_ptr() for n in names]), S)
+    assert rc == 0
+    for n in names:
+        err = float((got[n] - want[n]).abs().max())
+        assert err <= 1e-10 * max(1.0, float(want[n].abs().max())), n
+
+
+def test_op_count_nv35(icub):
+    """K6's operation count on the nv 35 tree: additive over stages, more
+    tangent than value operations."""
+    if shutil.which("g++") is None:
+        pytest.skip("g++ is not installed")
+    model, contacts = icub
+    args, cost = problems.chain_stages(model, contacts, S, seed=4,
+                                       with_cost=True)
+    val, tan = chn.op_count(model, contacts, *args, *cost)
+    parts = [chn.op_count(model, contacts, *[x[sl] for x in args + cost])
+             for sl in (slice(0, 1), slice(1, None))]
+    assert (val, tan) == tuple(map(sum, zip(*parts)))
+    assert 0 < val < tan

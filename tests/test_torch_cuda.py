@@ -7,13 +7,17 @@ that machine need not have, hence --noconftest):
         tests/test_torch_cuda.py
 
 Each wrapper is held against its plain version on the same CUDA tensors
-in float64 (1e-10 relative to each output's max-abs; the 34-row Kc on
-dense rows also in float32, 1e-4), the wrappers refuse
-inputs their kernels do not take, and one Newton update of a small fleet
+in float64 (1e-10 relative to each output's max-abs; Kc at 20 and 34
+rows on dense rows and K6 also in float32, 1e-4; K6 also on the full
+iCub's nv 35 tree), the wrappers refuse
+inputs their kernels do not take (K6 a chain layout past its workspace),
+and one Newton update of a small fleet
 on the card matches the same update on the CPU, for the standing problem,
 for the trot (impact slots, switching rows, the chain kernel K6 with the
 cost fold) and for the iCub walk (K6's surface-contact instance, the
 34-row Kc)."""
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -134,7 +138,8 @@ def test_chain_kernel_matches_plain(dev, with_cost, make, t0):
     assert chn.chain.launches == 1
     names = chn._OUTS + (chn._COST_OUTS if with_cost else ())
     _close([got[n] for n in names], [want[n] for n in names])
-    # 1, 3 and 7 stages, float64 and float32
+    # 1, 3 and 7 stages (a warp per stage, four to a block: the last block
+    # part full), float64 and float32
     for dtype, tol in ((torch.float64, 1e-10), (torch.float32, 1e-4)):
         model = convert.astype(p.model, dtype)
         contacts = convert.astype(p.mpc.contacts, dtype)
@@ -203,3 +208,55 @@ def test_walk_update_on_card_matches_cpu(dev):
         want = getattr(nh, name)
         err = float((getattr(nc, name).cpu() - want).abs().max())
         assert err <= 1e-8 * max(1.0, float(want.abs().max())), name
+
+
+@pytest.mark.parametrize("rows,fleet", [(20, 128 * 20), (20, 128 * 24),
+                                        (34, 128 * 28)])
+@pytest.mark.parametrize("dtype,tol", [(torch.float64, 1e-10),
+                                       (torch.float32, 1e-4)])
+def test_kc_matches_plain_on_stage_counts(dev, rows, fleet, dtype, tol):
+    """Kc (a warp per stage, four stages a block) at 20 and 34 rows on
+    seeded dense rows: 1, 3 and 7 stages (the last block part full) and
+    the fleets' stage counts (standing 128 x 20, trot 128 x 24, walk
+    128 x 28)."""
+    rng = np.random.default_rng(rows)
+    for S in (1, 3, 7, fleet):
+        args = [torch.as_tensor(x, dtype=dtype, device=dev) for x in (
+            rng.standard_normal((S, rows, 18)),
+            rng.standard_normal((S, rows, 12)),
+            np.exp(rng.standard_normal((S, rows))))]
+        cd.kc.launches = 0
+        _close(cd.kc(*args), cd.kc_plain(*args), tol)
+        assert cd.kc.launches == 1
+
+
+@pytest.mark.parametrize("with_cost", [False, True])
+def test_chain_kernel_nv35_matches_plain(dev, with_cost):
+    """K6 on the full iCub (nv 35, the torso chain carrying both arms,
+    two soles) on seeded stages: 1, 3 and 7 stages and 64, in float64 and
+    float32."""
+    for dtype, tol in ((torch.float64, 1e-10), (torch.float32, 1e-4)):
+        model, contacts = problems.icub_soles(dtype=dtype, device=dev)
+        names = chn._OUTS + (chn._COST_OUTS if with_cost else ())
+        for S in (1, 3, 7, 64):
+            args, cost = problems.chain_stages(model, contacts, S, seed=S,
+                                               with_cost=with_cost)
+            chn.chain.launches = 0
+            got = chn.chain(model, contacts, *args, *cost)
+            want = chn.chain_plain(model, contacts, *args, *cost)
+            assert chn.chain.launches == 1
+            _close([got[n] for n in names], [want[n] for n in names], tol)
+
+
+def test_chain_refuses_a_layout_past_its_workspace(dev):
+    """The full iCub's joints hung as one serial chain of 29: longer than
+    the nv 35 instance's workspace holds (csrc/chain_stage.cuh, ChainTree);
+    the launch refuses it and the wrapper raises, launching nothing."""
+    model, contacts = problems.icub_soles(device=dev)
+    serial = dataclasses.replace(model, parents=(-1,) + tuple(
+        range(model.nj - 1)))
+    args, _ = problems.chain_stages(model, contacts, 2, seed=1)
+    chn.chain.launches = 0
+    with pytest.raises(ValueError, match="do not fit"):
+        chn.chain(serial, contacts, *args)
+    assert chn.chain.launches == 0

@@ -46,10 +46,15 @@ def _fleet_inputs(jp, seed):
         jp["model"], jp["q0"], 0.01 * rng.standard_normal(18)))
         for _ in range(B)])
     v0s = np.zeros((B, 18))
-    js = JOS.OCPSolver(jp["model"], jp["contacts"], (jp["cost"],),
-                       jp["limits"], T=0.5, N=N)
-    sol0 = fields(jax_init_solution(js, jp["grid"], jp["q0"], jp["v0"]))
-    return q0s, v0s, {k: np.stack([v] * B) for k, v in sol0.items()}
+    if id(jp) not in _WARM:   # the warm start, once per problem
+        js = JOS.OCPSolver(jp["model"], jp["contacts"], (jp["cost"],),
+                           jp["limits"], T=0.5, N=N)
+        _WARM[id(jp)] = fields(jax_init_solution(js, jp["grid"], jp["q0"],
+                                                 jp["v0"]))
+    return q0s, v0s, {k: np.stack([v] * B) for k, v in _WARM[id(jp)].items()}
+
+
+_WARM = {}
 
 
 _PROBLEMS = {}

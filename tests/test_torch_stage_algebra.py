@@ -134,14 +134,30 @@ def test_k1_stage(lib, stage_batch):
         _rel_close(got, want, name=name)
 
 
+def _kc_outs(S):
+    """Kc's outputs filled with NaN: an entry the body does not write
+    shows."""
+    return [torch.full((S,) + sh, float("nan"), dtype=torch.float64)
+            for sh in ((NV, NV), (NV, NF), (NF, NF))]
+
+
+def _check_kc(outs, ins, name):
+    """Kc's host build (the upper triangle of the 30 x 30 sum in 3 x 3
+    tiles, each entry's mirror written by the lane that computed it)
+    against kc_plain to 1e-12; the symmetric blocks exactly symmetric."""
+    for got, want in zip(outs, cd.kc_plain(*ins)):
+        _rel_close(got, want, name=name)
+    for H in (outs[0], outs[2]):
+        assert torch.equal(H, H.transpose(-1, -2)), name
+
+
 def test_kc_stage(lib, stage_batch):
     x = stage_batch
     S = x["M"].shape[0]
     ins = [x["dgdq"], x["dgdf"], x["d_cone"]]
-    outs = [_empty(S, NV, NV), _empty(S, NV, NF), _empty(S, NF, NF)]
+    outs = _kc_outs(S)
     assert lib.rtt_host_kc(NC, S, *[_p(t) for t in ins + outs]) == 0
-    for got, want in zip(outs, cd.kc_plain(*ins)):
-        _rel_close(got, want, name="kc")
+    _check_kc(outs, ins, "kc")
 
 
 def test_kc_stage_34_rows(lib):
@@ -153,10 +169,9 @@ def test_kc_stage_34_rows(lib):
     ins = [torch.as_tensor(rng.standard_normal((S, ng, NV))),
            torch.as_tensor(rng.standard_normal((S, ng, NF))),
            torch.as_tensor(rng.uniform(0.1, 2.0, (S, ng)))]
-    outs = [_empty(S, NV, NV), _empty(S, NV, NF), _empty(S, NF, NF)]
+    outs = _kc_outs(S)
     assert lib.rtt_host_kc(ng, S, *[_p(t) for t in ins + outs]) == 0
-    for got, want in zip(outs, cd.kc_plain(*ins)):
-        _rel_close(got, want, name="kc34")
+    _check_kc(outs, ins, "kc34")
     assert lib.rtt_host_kc(17, S, *[_p(t) for t in ins + outs]) == -1
 
 

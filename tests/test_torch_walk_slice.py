@@ -58,7 +58,18 @@ def case():
     return jw, tp, sol, q0s, np.zeros((B, 18))
 
 
+_PORT = {}
+
+
 def _port(tp, sol, q0s, v0s, use_chain):
+    """The port's fleet update on the module's case, computed once per
+    route (the tests read it, none writes it)."""
+    if use_chain not in _PORT:
+        _PORT[use_chain] = _update(tp, sol, q0s, v0s, use_chain)
+    return _PORT[use_chain]
+
+
+def _update(tp, sol, q0s, v0s, use_chain):
     return TOS._update(tp["model"], tp["contacts"], tp["limits"], 1e-3,
                        0.995, tp["costs"], convert.solution(sol, device="cpu"),
                        tp["grid"], torch.as_tensor(q0s), torch.as_tensor(v0s),
