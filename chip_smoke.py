@@ -9,7 +9,8 @@ Phases, each of which raises (and so exits non-zero) on failure:
      per source, all at once;
   2. hold every kernel against its plain PyTorch version on the card, in
      float64 and float32: condense K1, Kc, K2, K3 on the stage slots of the
-     trot fleet; the Riccati backward sweep K5 without switching rows
+     trot fleet (K1 and K2 also on the walk fleet's); the Riccati backward
+     sweep K5 without switching rows
      (standing shapes) and with them (trot shapes); the chain kernel K6
      without the cost fold at the standing shapes and with it at the trot
      shapes; on the stage slots of the iCub walk fleet, K6's surface-contact
@@ -18,7 +19,10 @@ Phases, each of which raises (and so exits non-zero) on failure:
      nv 35 tree on seeded stages, without and with the fold. Time kernel
      and library call by device time (the profiler), the plain version and
      one wrapper call by CUDA events (float32); count K6's operations on
-     the host (csrc/chain_flops.cpp, g++) for its bound;
+     the host (csrc/chain_flops.cpp, g++) for its bound; print, not gated,
+     K5's switching branch in float32 against its plain version and both
+     against the plain version in float64 on the LQR inputs of one trot
+     and one walk fleet update (`c2_reading`);
   3. "slice": the ANYmal standing contact OCP (T 0.5, N 20), B = 128
      scenarios with perturbed initial configurations, float32, two updates
      per MPC step through OCPSolver.update with the kernels (K6 without the
@@ -71,6 +75,7 @@ import contextlib
 import dataclasses
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -154,29 +159,54 @@ def cuda_ms(fn, reps=20, warmup=3):
     return float(np.median(times))
 
 
-def kernel_ms(fn, reps=20, warmup=3):
-    """Device time of the kernels one call of `fn` launches, by the
-    profiler's CUDA activity: median over `reps` calls of their sum. CUDA
-    events around one call (cuda_ms) also hold the wrapper's host time
-    when the card waits for it; this does not."""
+def _device_events(fn, calls, tries=3):
+    """Durations (ms) of the device activity the profiler records while
+    `fn` runs `calls` times, in order. A session can record none (seen on
+    an H100 in the first session of a run): up to `tries` sessions are
+    made, and [] is returned if none records any."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        times = [(e.name, e.time_range.elapsed_us() / 1e3)
+                 for e in prof.events() if e.device_type == DeviceType.CUDA]
+        if times:
+            return times
+    return []
+
+
+def kernel_ms(fn, reps=20, warmup=3):
+    """Device time of the kernels one call of `fn` launches and the clock
+    it was read on. By the profiler's CUDA activity ("device"): median over
+    `reps` calls of their sum. CUDA events around one call (cuda_ms) also
+    hold the wrapper's host time when the card waits for it; this does
+    not. Where the profiler records no device activity, CUDA events around
+    `reps` calls in a row, over `reps` ("events")."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    times = [t for _, t in _device_events(fn, reps)]
+    if not times:
+        print("  kernel_ms: the profiler recorded no device activity; "
+              "timed by CUDA events instead", flush=True)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
         for _ in range(reps):
             fn()
-        torch.cuda.synchronize()
-    times = [e.time_range.elapsed_us() / 1e3 for e in prof.events()
-             if e.device_type == DeviceType.CUDA]
-    check(times, "kernel_ms: the profiler recorded no device activity")
+        end.record()
+        end.synchronize()
+        return start.elapsed_time(end) / reps, "events"
     if len(times) % reps == 0:   # the same kernels each call, in order
         per = len(times) // reps
         return float(np.median([sum(times[i:i + per])
-                                for i in range(0, len(times), per)]))
-    return sum(times) / reps
+                                for i in range(0, len(times), per)])), \
+            "device"
+    return sum(times) / reps, "device"
 
 
 def host_ms(fn, reps=5):
@@ -196,19 +226,11 @@ def device_time(fn):
     """Total device time of the kernels one call of `fn` launches, by the
     profiler's CUDA activity, in ms, and the five largest kernels by name.
     (None, {}) when the profiler records no device activity."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
     by_name = {}
-    for evt in prof.events():
-        if evt.device_type == DeviceType.CUDA:
-            by_name[evt.name] = (by_name.get(evt.name, 0.0)
-                                 + evt.time_range.elapsed_us() / 1e3)
+    for name, t in _device_events(fn, 1):
+        by_name[name] = by_name.get(name, 0.0) + t
     if not by_name:
         return None, {}
     top = dict(sorted(by_name.items(), key=lambda kv: -kv[1])[:5])
@@ -393,13 +415,17 @@ def _record(name, source, replaces, err, kern, plain, b, lib=None,
     """A kernel's record, timed in float32: `ms` and `library_ms` by device
     time (kernel_ms, the profiler), `call_ms` (one call of the wrapper) and
     `plain_ms` (one call of the plain version) by CUDA events, host time
-    included. `clock` says which."""
+    included. `clock` says which (kernel_ms falls back to CUDA events
+    where the profiler records nothing)."""
+    ms, ms_clock = kernel_ms(kern)
+    lib_ms, lib_clock = (None, CLOCK["library_ms"]) if lib is None \
+        else kernel_ms(lib)
     return dict(name=name, route="cuda", source=source, replaces=replaces,
-                launches=None, max_abs_err=err, ms=kernel_ms(kern),
+                launches=None, max_abs_err=err, ms=ms,
                 plain_ms=cuda_ms(plain, reps=plain_reps, warmup=1),
-                bound_ms=b[0], bound_by=b[1],
-                library_ms=None if lib is None else kernel_ms(lib),
-                call_ms=cuda_ms(kern), clock=CLOCK)
+                bound_ms=b[0], bound_by=b[1], library_ms=lib_ms,
+                call_ms=cuda_ms(kern),
+                clock=dict(CLOCK, ms=ms_clock, library_ms=lib_clock))
 
 
 def _op_counts(pool, model, contacts, args, cost, chunk=256):
@@ -411,6 +437,68 @@ def _op_counts(pool, model, contacts, args, cost, chunk=256):
                          *[x[i:i + chunk] for x in ins])
              for i in range(0, ins[0].shape[0], chunk)]
     return lambda: tuple(map(sum, zip(*[f.result() for f in parts])))
+
+
+def _k12_inputs(x):
+    """K1's and K2's inputs from one fleet's condense inputs, as
+    ops/condense.condense forms them (K2's from the plain K1 and Kc)."""
+    k1_in = [x[n] for n in ("M", "J", "inactive", "Tw1", "Tw2", "r1", "e2")]
+    _, _, _, G, c0 = cd.k1_plain(*k1_in)
+    Hqq, Hqf, Hff = cd.kc_plain(x["dgdq"], x["dgdf"], x["d_cone"])
+    d = torch.diag_embed
+    k2_in = [G, c0, x["Wq"] + d(x["Hq_d"]) + Hqq, x["Wv"] + d(x["Hv_d"]),
+             x["Wu"] + d(x["Hu_d"]), x["Wa"] + d(x["Ha_d"]), x["Wf"] + Hff,
+             Hqf, x["gw"], x["gy"]]
+    return k1_in, [t.contiguous() for t in k2_in]
+
+
+def lqr_of_update(p):
+    """The LQR inputs one fleet update hands to K5 (bs.bwd): problem p's
+    solver on B scenarios (problems.fleet), the first call captured."""
+    sol, q0s, v0s = problems.fleet(p.solver, p.grid, p.q0, p.v0, B)
+    seen = []
+
+    def make(kern):
+        def grab(*a):
+            seen.append(a)
+            return kern(*a)
+
+        grab.launches = 0   # the wrapper counts on the name it is under
+        return grab
+
+    with _swapped("K5", make):
+        p.solver.update(p.grid, q0s, v0s, sol)
+    return seen[0]
+
+
+def c2_reading(dev):
+    """Open check C2, printed, not gated: K5's switching branch in float32
+    against bwd_plain on the LQR inputs of the trot's and the walk's own
+    fleet updates: each output's max abs error over its max-abs; beside
+    it, the float32 kernel's and the float32 plain version's distance
+    from bwd_plain in float64 on the same inputs, the same way."""
+    names = ("K", "k", "P", "p", "Mx", "mx")
+
+    def rel(a, b):
+        return {n: float((x - y).abs().max()) / max(float(y.abs().max()),
+                                                     1e-30)
+                for n, x, y in zip(names, a, b) if y is not None}
+
+    out = {}
+    for tag, make in (("trot", problems.anymal_trot), ("walk", walk_problem)):
+        args = lqr_of_update(make(dtype=torch.float32, device=dev))
+        got, want = bs.bwd(*args), bs.bwd_plain(*args)
+        ref = bs.bwd_plain(*[None if a is None else a.double()
+                             for a in args])
+        out[tag] = {"kernel vs plain": rel(got, want),
+                    "kernel vs f64": rel(got, ref),
+                    "plain vs f64": rel(want, ref)}
+        print(f"  C2 {tag}: K5 switching, f32, the update's LQR inputs "
+              f"{tuple(args[0].shape[:2])}; max abs error / max-abs: "
+              + "; ".join(f"{k}: " + ", ".join(f"{n} {r:.1e}"
+                                              for n, r in v.items())
+                          for k, v in out[tag].items()))
+    return out
 
 
 def phase_kernels(dev):
@@ -430,7 +518,8 @@ def phase_kernels(dev):
     prew = OS.stage_pre_all(pw.model, pw.mpc.contacts, pw.mpc.limits, 1e-3,
                             pw.costs, solw, gridw, n_imp=pw.mpc.n_reserved,
                             use_chain=False)
-    xw = [prew[k].contiguous() for k in ("dgdq", "dgdf", "d_cone")]
+    xw64 = {k: prew[k].contiguous() for k in cd.IN_NAMES}
+    xw = [xw64[k] for k in ("dgdq", "dgdf", "d_cone")]
     # the walk's wrench cones act on the local wrench, so its dgdq rows
     # are zero; seeded dense rows at the same shapes reach every block of
     # the 34-row Kc
@@ -468,8 +557,7 @@ def phase_kernels(dev):
     pool.shutdown(wait=False)
     for dtype in (torch.float64, torch.float32):
         x = {k: v.to(dtype) for k, v in x64.items()}
-        k1_in = [x[n] for n in ("M", "J", "inactive", "Tw1", "Tw2", "r1",
-                                "e2")]
+        k1_in, k2_in = _k12_inputs(x)
         p1 = cd.k1_plain(*k1_in)
         e1 = _compare("K1", cd.k1(*k1_in), p1, dtype)
         kc_in = [x["dgdq"], x["dgdf"], x["d_cone"]]
@@ -479,14 +567,15 @@ def phase_kernels(dev):
         ecw = _compare("Kc 34", cd.kc(*kcw_in), cd.kc_plain(*kcw_in), dtype)
         kcr_in = [t.to(dtype) for t in xr]
         _compare("Kc 34 seed", cd.kc(*kcr_in), cd.kc_plain(*kcr_in), dtype)
-        d = torch.diag_embed
-        k2_in = [p1[3], p1[4], x["Wq"] + d(x["Hq_d"]) + pc[0],
-                 x["Wv"] + d(x["Hv_d"]), x["Wu"] + d(x["Hu_d"]),
-                 x["Wa"] + d(x["Ha_d"]), x["Wf"] + pc[2], pc[1], x["gw"],
-                 x["gy"]]
-        k2_in = [t.contiguous() for t in k2_in]
         p2 = cd.k2_plain(*k2_in)
         e2 = _compare("K2", cd.k2(*k2_in), p2, dtype)
+        # K1 and K2 on the walk's own condense inputs (3584 stage slots)
+        xwd = {k: v.to(dtype) for k, v in xw64.items()}
+        k1w_in, k2w_in = _k12_inputs(xwd)
+        e1w = _compare("K1 walk", cd.k1(*k1w_in), cd.k1_plain(*k1w_in),
+                       dtype)
+        e2w = _compare("K2 walk", cd.k2(*k2w_in), cd.k2_plain(*k2w_in),
+                       dtype)
         k3_in = [p1[3], p1[4], p2[3].contiguous()] + [
             x[n] for n in ("Aqq", "Aqv", "xres_q", "Fv_res", "sA", "lam2",
                            "lmdgmm")]
@@ -529,6 +618,12 @@ def phase_kernels(dev):
             ("K2", "K2 condense_k2", cd.k2, cd.k2_plain, k2_in, e2,
              S * flops_k2(nv, nu, nf_), None,
              "robotoc_tpu/ops/pallas_condense.py:377"),
+            ("K1w", "K1 condense_k1 walk", cd.k1, cd.k1_plain, k1w_in, e1w,
+             Sw * flops_k1(nv, nf_, w), None,
+             "robotoc_tpu/ops/pallas_condense.py:331"),
+            ("K2w", "K2 condense_k2 walk", cd.k2, cd.k2_plain, k2w_in, e2w,
+             Sw * flops_k2(nv, nu, nf_), None,
+             "robotoc_tpu/ops/pallas_condense.py:377"),
             ("K3", "K3 condense_k3", cd.k3, cd.k3_plain, k3_in, e3,
              S * flops_k3(nv, nu), None,
              "robotoc_tpu/ops/pallas_condense.py:399"),
@@ -565,6 +660,7 @@ def phase_kernels(dev):
                 lambda: chn.chain_plain(model, contacts, *args, *cost),
                 bound(nbytes(*read, *cost) + nbytes(*got.values()),
                       n_val + n_tan, dtype), plain_reps=3)
+    c2_reading(dev)
     for r in recs.values():
         print(f"  {r['name']:30s} {r['ms']:.4f} ms (a call {r['call_ms']:.4f})"
               f"  plain (a call) {r['plain_ms']:.3f}"
@@ -1248,7 +1344,8 @@ def phase_walk(dev):
 
 def _summary(out):
     """Each kernel's device time (ms) and ms per MPC step from one run's
-    output."""
+    output, and the kernels phase's kernel-vs-plain max abs errors
+    ("<name> float32 err", "<name> float64 err")."""
     row = {}
     for line in out.splitlines():
         if line.startswith('{"kernels"'):
@@ -1258,6 +1355,10 @@ def _summary(out):
             if line.startswith(tag + ": {"):
                 row[tag + " ms/step"] = json.loads(
                     line[len(tag) + 2:])["ms_per_mpc_step"]
+        m = re.match(r"  (\S.*?)\s+torch\.(float\d\d)\s+max_abs_err (\S+)",
+                     line)
+        if m:
+            row[f"{m.group(1)} {m.group(2)} err"] = float(m.group(3))
     return row
 
 
@@ -1270,6 +1371,7 @@ def pair(other, phases, out_dir):
     run failed."""
     os.makedirs(out_dir, exist_ok=True)
     rc = 0
+    rows = []
     for i, tree in enumerate((other, ROOT, ROOT, other)):
         code = (f"import runpy, sys; sys.path[:0] = [{tree!r}]; "
                 f"g = runpy.run_path({os.path.abspath(__file__)!r}); "
@@ -1280,10 +1382,17 @@ def pair(other, phases, out_dir):
         with open(os.path.join(out_dir, f"pair_{i}.txt"), "w") as fh:
             fh.write(run.stdout + run.stderr)
         tag = "parent" if tree == other else "change"
+        rows.append(_summary(run.stdout))
         print(f"pair run {i} ({tag}, {tree}): rc {run.returncode}, "
-              f"{time.perf_counter() - t0:.1f} s: "
-              + json.dumps(_summary(run.stdout)), flush=True)
+              f"{time.perf_counter() - t0:.1f} s: " + json.dumps(rows[-1]),
+              flush=True)
         rc = rc or run.returncode
+    # each number beside the other tree's: runs 0, 3 (other) / 1, 2 (this)
+    print("pair, other (runs 0, 3) / this (runs 1, 2):")
+    for key in sorted(set().union(*rows)):
+        vals = [r.get(key) for r in rows]
+        fmt = [f"{v:.4g}" if v is not None else "-" for v in vals]
+        print(f"  {key:40s} {fmt[0]}, {fmt[3]} / {fmt[1]}, {fmt[2]}")
     return rc
 
 
@@ -1327,7 +1436,8 @@ def main(phases=ALL_PHASES):
         phase_golden(dev)
     if "walk" in phases:
         launches, out = phase_walk(dev)
-        note(launches, (("K6s", "K6"), ("Kc34", "Kc")), "walk: " + step)
+        note(launches, (("K6s", "K6"), ("Kc34", "Kc"), ("K1w", "K1"),
+                        ("K2w", "K2")), "walk: " + step)
         note(out["biped_standing_launches"], (("K6s nofold", "K6"),),
              "biped standing OCP (N 4, one scenario, float64): 12 updates")
     print(f"total {time.perf_counter() - t0:.1f} s")

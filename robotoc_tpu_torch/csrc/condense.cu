@@ -3,22 +3,34 @@
 // Replace robotoc_tpu ops/pallas_condense.py: _k1_kernel (launch :331),
 // _kc_kernel (:348), _k2_kernel (:377), _k3_kernel (:399).
 //
-// Design: K1, K2 and K3 run one thread block per stage, the stage's blocks
-// in shared memory, threads over the entries of each output (csrc/
-// condense_stage.cuh). Kc runs a warp per stage and four stages a block:
-// its stage does about 0.2 us of work, too little to pay for a block and
-// its barriers, so each warp stages its own rows by 16-byte cp.async,
-// forms the upper triangle of its 30 x 30 sum in 3 x 3 register tiles and
-// writes the three output blocks back in 16-byte stores, with warp
-// barriers only (on "NVIDIA H100 80GB HBM3, 700.00 W", f32 device time,
+// Design. K3 runs one thread block per stage, the stage's blocks in
+// shared memory, threads over the entries of each output (csrc/
+// condense_stage.cuh). K1 and Kc run a warp per stage, four stages a
+// block, with warp barriers only. Kc: its stage does about 0.2 us of work,
+// too little to pay for a block and its barriers, so each warp stages its
+// own rows by 16-byte cp.async, forms the upper triangle of its 30 x 30
+// sum in 3 x 3 register tiles and writes the three output blocks back in
+// 16-byte stores (on "NVIDIA H100 80GB HBM3, 700.00 W", f32 device time,
 // chip_smoke.py's kernels phase: 0.010 ms at 20 rows and 2560 stages,
 // 0.015 ms at 34 rows and 3584, twice their bytes bounds and half the
-// time of torch.einsum on the same inputs). The
-// Pallas kernels put 128 stages across the TPU lanes and padded the stage
-// count with identity KKT blocks; here nothing is padded. Inputs and
-// outputs are batch-first row-major (S, d1, d2) tensors, so a block reads
-// and writes contiguous runs and neighbouring threads touch neighbouring
-// addresses.
+// time of torch.einsum on the same inputs). K1: lane i holds row i of the
+// 30 x 30 KKT block in registers and the warp inverts it with a warp
+// barrier a pivot, the scaled pivot row broadcast through shared memory,
+// while cp.async stages [Tw1; Tw2]; G's rows come from register chunks
+// times 16-byte broadcasts of Tw's rows (0.054 ms at 3072 stages, 3.3
+// times faster than the block-per-stage kernel it replaced, at 20 warps an
+// SM; above its bytes bound by a stage's chain of 30 dependent pivots,
+// not timed apart). K2: a
+// block of four warps per stage, its products in register tiles with
+// 16-byte operand loads, a tile a thread, and the output written in one
+// coalesced pass (0.046 ms at 3072 stages, 2.2 times faster than the
+// block-per-stage kernel with scalar products it replaced; what holds it
+// is each stage's chain of loads, products and barriers, not the bytes).
+// The Pallas kernels put 128 stages across the TPU lanes and padded the
+// stage count with identity KKT blocks; here nothing is padded. Inputs
+// and outputs are batch-first row-major (S, d1, d2) tensors, so a stage
+// reads and writes contiguous runs and neighbouring threads touch
+// neighbouring addresses.
 //
 // Bound on the card: at the ANYmal widths (nv 18, nu 12, nf 12, 20 cone
 // rows) every kernel moves 13-51 MB per launch for 2560 stages and does
@@ -42,7 +54,8 @@ extern __shared__ __align__(16) unsigned char rtt_smem[];
 
 namespace {
 
-constexpr int kThreads = 256;
+constexpr int kThreads = 256;   // K3's block
+constexpr int kWarps = 4;       // stages a block of K1 and Kc
 
 template <typename T>
 __device__ T* smem() {
@@ -57,43 +70,45 @@ cudaError_t allow_smem(K kernel, size_t bytes) {
                               static_cast<int>(bytes));
 }
 
-template <typename T, int NV, int NF, int W>
-__global__ void __launch_bounds__(kThreads)
+// K1 and Kc: a warp per stage, WARPS stages a block, each warp's
+// workspace its own slice of shared memory; the warps past S leave at once
+// (their barriers are their own)
+template <typename T, int NV, int NF, int W, int WARPS>
+__global__ void __launch_bounds__(32 * WARPS)
 k1_kernel(const T* __restrict__ M, const T* __restrict__ J,
           const T* __restrict__ inact, const T* __restrict__ Tw1,
           const T* __restrict__ Tw2, const T* __restrict__ r1,
           const T* __restrict__ e2, T* __restrict__ inv11,
           T* __restrict__ inv12, T* __restrict__ Sinv, T* __restrict__ G,
-          T* __restrict__ c0) {
+          T* __restrict__ c0, long long S) {
+  using K = rtt::K1Stage<T, NV, NF, W>;
   constexpr int NY = NV + NF;
-  const long long s = blockIdx.x;
-  rtt::K1Stage<T, NV, NF, W>::run(
-      M + s * NV * NV, J + s * NF * NV, inact + s * NF, Tw1 + s * NV * W,
-      Tw2 + s * NF * W, r1 + s * NV, e2 + s * NF, inv11 + s * NV * NV,
-      inv12 + s * NV * NF, Sinv + s * NF * NF, G + s * NY * W, c0 + s * NY,
-      smem<T>(), threadIdx.x, blockDim.x);
+  const int warp = threadIdx.x / 32;
+  const long long s = static_cast<long long>(blockIdx.x) * WARPS + warp;
+  if (s >= S) return;
+  K::run(M + s * NV * NV, J + s * NF * NV, inact + s * NF, Tw1 + s * NV * W,
+         Tw2 + s * NF * W, r1 + s * NV, e2 + s * NF, inv11 + s * NV * NV,
+         inv12 + s * NV * NF, Sinv + s * NF * NF, G + s * NY * W, c0 + s * NY,
+         smem<T>() + K::WS * warp, threadIdx.x % 32, 32);
 }
 
-// Kc: a warp per stage, kKcWarps stages a block, each warp's workspace
-// its own slice of shared memory (KcStage)
-constexpr int kKcWarps = 4;
-
-template <typename T, int NV, int NF, int NC>
-__global__ void __launch_bounds__(32 * kKcWarps)
+template <typename T, int NV, int NF, int NC, int WARPS>
+__global__ void __launch_bounds__(32 * WARPS)
 kc_kernel(const T* __restrict__ dgdq, const T* __restrict__ dgdf,
           const T* __restrict__ d, T* __restrict__ Hqq, T* __restrict__ Hqf,
           T* __restrict__ Hff, long long S) {
   using K = rtt::KcStage<T, NV, NF, NC>;
   const int warp = threadIdx.x / 32;
-  const long long s = static_cast<long long>(blockIdx.x) * kKcWarps + warp;
-  if (s >= S) return;   // the whole warp: its barriers are its own
+  const long long s = static_cast<long long>(blockIdx.x) * WARPS + warp;
+  if (s >= S) return;
   K::run(dgdq + s * NC * NV, dgdf + s * NC * NF, d + s * NC,
          Hqq + s * NV * NV, Hqf + s * NV * NF, Hff + s * NF * NF,
          smem<T>() + K::WS * warp, threadIdx.x % 32, 32);
 }
 
+// K2: a block of K2Stage::NT threads (four warps) per stage
 template <typename T, int NV, int NU, int NF>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(rtt::K2Stage<T, NV, NU, NF>::NT)
 k2_kernel(const T* __restrict__ G, const T* __restrict__ c0,
           const T* __restrict__ Hq, const T* __restrict__ Hv,
           const T* __restrict__ Hu, const T* __restrict__ Ha,
@@ -111,6 +126,7 @@ k2_kernel(const T* __restrict__ G, const T* __restrict__ c0,
       threadIdx.x, blockDim.x);
 }
 
+// K3: a thread block per stage
 template <typename T, int NV, int NU, int NF>
 __global__ void __launch_bounds__(kThreads)
 k3_kernel(const T* __restrict__ G, const T* __restrict__ c0,
@@ -130,14 +146,28 @@ k3_kernel(const T* __restrict__ G, const T* __restrict__ c0,
       blockDim.x);
 }
 
-// Launch `kernel` over S blocks with WS scalars of dynamic shared memory.
-template <typename T, int WS, typename K, typename... Args>
+// Launch `kernel` over S blocks of THREADS threads with WS scalars of
+// dynamic shared memory.
+template <typename T, int WS, int THREADS, typename K, typename... Args>
 int launch(K kernel, long long S, void* stream, Args... args) {
   const size_t bytes = sizeof(T) * WS;
   cudaError_t err = allow_smem(kernel, bytes);
   if (err != cudaSuccess) return static_cast<int>(err);
-  kernel<<<static_cast<unsigned>(S), kThreads, bytes,
+  kernel<<<static_cast<unsigned>(S), THREADS, bytes,
            static_cast<cudaStream_t>(stream)>>>(args...);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Launch a warp-per-stage `kernel` over S stages, WARPS a block, with WS
+// scalars of dynamic shared memory a warp; S is its last argument.
+template <typename T, int WS, int WARPS, typename K, typename... Args>
+int launch_warps(K kernel, long long S, void* stream, Args... args) {
+  const size_t bytes = sizeof(T) * WS * WARPS;
+  cudaError_t err = allow_smem(kernel, bytes);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const unsigned blocks = static_cast<unsigned>((S + WARPS - 1) / WARPS);
+  kernel<<<blocks, 32 * WARPS, bytes, static_cast<cudaStream_t>(stream)>>>(
+      args..., S);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -157,26 +187,19 @@ int k1_typed(const void* M, const void* J, const void* inact,
              const void* e2, void* inv11, void* inv12, void* Sinv, void* G,
              void* c0, long long S, void* stream) {
   using K = rtt::K1Stage<T, 18, 12, 48>;
-  return launch<T, K::WS>(k1_kernel<T, 18, 12, 48>, S, stream, in<T>(M),
-                          in<T>(J), in<T>(inact), in<T>(Tw1), in<T>(Tw2),
-                          in<T>(r1), in<T>(e2), out<T>(inv11),
-                          out<T>(inv12), out<T>(Sinv), out<T>(G),
-                          out<T>(c0));
+  return launch_warps<T, K::WS, kWarps>(
+      k1_kernel<T, 18, 12, 48, kWarps>, S, stream, in<T>(M), in<T>(J),
+      in<T>(inact), in<T>(Tw1), in<T>(Tw2), in<T>(r1), in<T>(e2),
+      out<T>(inv11), out<T>(inv12), out<T>(Sinv), out<T>(G), out<T>(c0));
 }
 
 template <typename T, int NG>
 int kc_typed(const void* dgdq, const void* dgdf, const void* d, void* Hqq,
              void* Hqf, void* Hff, long long S, void* stream) {
   using K = rtt::KcStage<T, 18, 12, NG>;
-  auto kernel = kc_kernel<T, 18, 12, NG>;
-  const size_t bytes = sizeof(T) * K::WS * kKcWarps;
-  cudaError_t err = allow_smem(kernel, bytes);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const unsigned blocks = static_cast<unsigned>((S + kKcWarps - 1) / kKcWarps);
-  kernel<<<blocks, 32 * kKcWarps, bytes, static_cast<cudaStream_t>(stream)>>>(
-      in<T>(dgdq), in<T>(dgdf), in<T>(d), out<T>(Hqq), out<T>(Hqf),
-      out<T>(Hff), S);
-  return static_cast<int>(cudaGetLastError());
+  return launch_warps<T, K::WS, kWarps>(
+      kc_kernel<T, 18, 12, NG, kWarps>, S, stream, in<T>(dgdq), in<T>(dgdf),
+      in<T>(d), out<T>(Hqq), out<T>(Hqf), out<T>(Hff));
 }
 
 template <int NG>
@@ -195,11 +218,10 @@ int k2_typed(const void* G, const void* c0, const void* Hq, const void* Hv,
              const void* cHqf, const void* gw, const void* gy, void* Qxx,
              void* Qxu, void* Quu, void* gtil, long long S, void* stream) {
   using K = rtt::K2Stage<T, 18, 12, 12>;
-  return launch<T, K::WS>(k2_kernel<T, 18, 12, 12>, S, stream, in<T>(G),
-                          in<T>(c0), in<T>(Hq), in<T>(Hv), in<T>(Hu),
-                          in<T>(Ha), in<T>(Hf), in<T>(cHqf), in<T>(gw),
-                          in<T>(gy), out<T>(Qxx), out<T>(Qxu), out<T>(Quu),
-                          out<T>(gtil));
+  return launch<T, K::WS, K::NT>(
+      k2_kernel<T, 18, 12, 12>, S, stream, in<T>(G), in<T>(c0), in<T>(Hq),
+      in<T>(Hv), in<T>(Hu), in<T>(Ha), in<T>(Hf), in<T>(cHqf), in<T>(gw),
+      in<T>(gy), out<T>(Qxx), out<T>(Qxu), out<T>(Quu), out<T>(gtil));
 }
 
 template <typename T>
@@ -209,11 +231,11 @@ int k3_typed(const void* G, const void* c0, const void* gtil,
              const void* lmdgmm, void* A, void* Bm, void* xres, void* lx,
              void* lu, long long S, void* stream) {
   using K = rtt::K3Stage<T, 18, 12, 12>;
-  return launch<T, K::WS>(k3_kernel<T, 18, 12, 12>, S, stream, in<T>(G),
-                          in<T>(c0), in<T>(gtil), in<T>(Aqq), in<T>(Aqv),
-                          in<T>(xres_q), in<T>(Fv_res), in<T>(sA),
-                          in<T>(lam2), in<T>(lmdgmm), out<T>(A), out<T>(Bm),
-                          out<T>(xres), out<T>(lx), out<T>(lu));
+  return launch<T, K::WS, kThreads>(
+      k3_kernel<T, 18, 12, 12>, S, stream, in<T>(G), in<T>(c0), in<T>(gtil),
+      in<T>(Aqq), in<T>(Aqv), in<T>(xres_q), in<T>(Fv_res), in<T>(sA),
+      in<T>(lam2), in<T>(lmdgmm), out<T>(A), out<T>(Bm), out<T>(xres),
+      out<T>(lx), out<T>(lu));
 }
 
 }  // namespace

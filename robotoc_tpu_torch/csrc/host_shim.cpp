@@ -27,9 +27,9 @@ void gj(double* A) {
 template <bool TA, bool TB>
 void gemm_537(double* C, const double* A, const double* B, const double* D,
               double alpha) {
-  // op(A) 5x3, op(B) 3x7, C 5x7
-  rtt::gemm<double, 5, 7, 3, TA, TB>(C, 7, A, TA ? 5 : 3, B, TB ? 3 : 7, D,
-                                     7, alpha, 0, 1);
+  // op(A) 5x3, op(B) 3x7, C 5x7, in 1 x 7 tiles
+  rtt::gemm_tiled<double, 5, 7, 3, 1, 7, TA, TB>(
+      C, 7, A, TA ? 5 : 3, B, TB ? 3 : 7, D, 7, alpha, 0, 1);
 }
 
 template <int NFR>
@@ -121,6 +121,28 @@ int rtt_host_gemv_53(int ta, double* y, const double* A, const double* x,
     rtt::gemv<double, 5, 3, true>(y, A, 5, x, d, alpha, 0, 1);
   else
     rtt::gemv<double, 5, 3, false>(y, A, 3, x, d, alpha, 0, 1);
+  return 0;
+}
+
+// C (6 x 16) = A (6 x 5) B (5 x 16) by gemm_rows in 3 x 8 tiles.
+int rtt_host_gemm_rows(double* C, const double* A, const double* B) {
+  rtt::gemm_rows<double, 6, 16, 5, 3, 8>(C, 16, A, 5, B, 16, 0, 1);
+  return 0;
+}
+
+// C (4 x 8) = A[:, 2:6]^T B[:, 2:10] by tile_tn, A 5 x 6, B 5 x 10.
+int rtt_host_tile_tn(double* C, const double* A, const double* B) {
+  double acc[4][8];
+  rtt::tile_tn<double, 5, 4, 8>(acc, A + 2, 6, B + 2, 10);
+  for (int m = 0; m < 4; ++m)
+    for (int n = 0; n < 8; ++n) C[m * 8 + n] = acc[m][n];
+  return 0;
+}
+
+// dst (3 x 4, contiguous) = the first 4 columns of src's 3 rows of 6 by
+// store_rows.
+int rtt_host_store_rows(double* dst, const double* src) {
+  rtt::store_rows<double, 3, 4, 6>(dst, src, 0, 1);
   return 0;
 }
 

@@ -44,11 +44,6 @@ struct RiccatiBwd {
   static constexpr int TX = (NW / 2) * (NX / 2), TY = (NX / 2) * (NW / 2);
   static constexpr int TK = (NU / 2) * (NX / 2), TG = (NU / 2) * (NU / 2);
   static RTT_HD constexpr int pad(int n) { return (n + 3) / 4 * 4; }
-  // the thread index that puts item 0 of a cooperative loop on thread
-  // `off`: products of one phase spread over the threads the others leave
-  static RTT_HD int rot(int tid, int off, int nt) {
-    return (tid + nt - off % nt) % nt;
-  }
   // one step's inputs (a buffer; two of them alternate)
   static constexpr int B_AB = 0;                     // NX x NW
   static constexpr int B_Q = B_AB + pad(NX * NW);    // NX x NW

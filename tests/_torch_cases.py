@@ -254,3 +254,56 @@ def close_tree(got, want, tol, name=""):
         w = np.asarray(w)
         scale = max(1.0, float(np.abs(w).max(initial=0.0)))
         assert_close(np.asarray(g) / scale, w / scale, tol, f"{name}[{i}]")
+
+
+def icub_soles_jax(S=5, seed=2):
+    """The JAX package's own data for its surface chain kernel test
+    (tests/test_pallas_chain.py, test_chain_surface_matches_jacfwd): the
+    full iCub on both soles (rect 0.1 x 0.05), S states from
+    PRNGKey(seed), configurations moved from neutral by 0.3 N(0, 1),
+    reference rotations R_ref = so3_exp(0.2 N(0, 1)) near the identity,
+    while the soles sit near pi from it: the SE(3) log's rotation works
+    near its branch cut. Returns (JAX model, JAX contacts, the seven
+    inputs of the chain kernel as numpy)."""
+    from robotoc_tpu.models import contacts as ct
+    from robotoc_tpu.models import load_robot
+    from robotoc_tpu.models import robot as rm
+    from robotoc_tpu.ops import lie
+    m = load_robot("icub")
+    contacts = ct.make_contacts(m, ("l_sole", "r_sole"),
+                                types=(ct.SURFACE, ct.SURFACE),
+                                rect=(0.1, 0.05))
+    ks = jax.random.split(jax.random.PRNGKey(seed), 6)
+    nc = contacts.n_contacts
+    dq = 0.3 * jax.random.normal(ks[0], (S, m.nv), m.dtype)
+    q = jax.vmap(lambda d: rm.integrate(m, rm.neutral(m), d))(dq)
+    ins = (q, jax.random.normal(ks[1], (S, m.nv), m.dtype),
+           jax.random.normal(ks[2], (S, m.nv), m.dtype),
+           30.0 * jax.random.normal(ks[3], (S, contacts.max_dimf), m.dtype),
+           0.5 + 0.3 * jax.random.uniform(ks[4], (S, nc), dtype=m.dtype),
+           0.3 * jax.random.normal(ks[5], (S, nc, 3), m.dtype),
+           lie.so3_exp(0.2 * jax.random.normal(ks[5], (S, nc, 3), m.dtype)))
+    return m, contacts, [np.asarray(x) for x in ins]
+
+
+def host_chain(host, model, contacts, ins, shapes):
+    """K6's host build (csrc/host_shim.cpp, rtt_host_chain) on the port's
+    model and the given float64 inputs, with the cost fold when `shapes`
+    names its outputs; outputs filled with NaN first. `shapes` maps each
+    output name to its shape."""
+    import ctypes
+    from robotoc_tpu_torch.ops import chain as chn
+    names = [n for n in chn._OUTS + chn._COST_OUTS if n in shapes]
+    ins = [torch.as_tensor(x).contiguous() for x in ins]
+    got = {n: torch.full(tuple(shapes[n]), float("nan"), dtype=torch.float64)
+           for n in names}
+    consts, topo = chn.model_tables(model, contacts, torch.float64, "cpu")
+    P = ctypes.c_void_p
+    rc = host.rtt_host_chain(
+        model.nv, int(len(names) > len(chn._OUTS)), contacts.n_contacts,
+        contacts.types[0], P(consts.data_ptr()), P(topo.data_ptr()),
+        (P * len(ins))(*[t.data_ptr() for t in ins]),
+        (P * len(names))(*[got[n].data_ptr() for n in names]),
+        ins[0].shape[0])
+    assert rc == 0
+    return got

@@ -13,7 +13,12 @@ tree that is not a star; its stages are made from numpy seeds
     (with_task): 1e-9 of each output's max-abs (at least one);
   * the g++ build of K6's arithmetic for the nv 35 tree
     (csrc/chain_stage.cuh, IcubSoles) against chain_plain, without and
-    with the cost fold: 1e-10; its operation count.
+    with the cost fold: 1e-10; its operation count;
+  * near the SE(3) log's branch cut (the JAX package's own data for its
+    surface kernel test, open check C1 of ROADMAP.md): K6's host build and
+    chain_plain against the XLA oracle, at the JAX test's 1e-5 and at
+    1e-10 of each output's max-abs (the Pallas route:
+    tests/test_torch_chain_branch_cut.py).
 """
 import ctypes
 import dataclasses
@@ -25,6 +30,8 @@ import torch
 
 import jax
 import jax.numpy as jnp
+
+from _torch_cases import host_chain, icub_soles_jax
 
 from robotoc_tpu.models import contacts as jct
 from robotoc_tpu.models import load_robot as jload
@@ -193,17 +200,8 @@ def test_host_build_matches_chain_plain(icub, host, with_cost):
                                        with_cost=with_cost)
     want = chn.chain_plain(model, contacts, *args, *cost)
     names = chn._OUTS + (chn._COST_OUTS if with_cost else ())
-    got = {n: torch.full(want[n].shape, float("nan"), dtype=torch.float64)
-           for n in names}
-    consts, topo = chn.model_tables(model, contacts, torch.float64, "cpu")
-    ins = args + cost
-    P = ctypes.c_void_p
-    rc = host.rtt_host_chain(
-        model.nv, int(with_cost), contacts.n_contacts, SURFACE,
-        P(consts.data_ptr()), P(topo.data_ptr()),
-        (P * len(ins))(*[t.data_ptr() for t in ins]),
-        (P * len(names))(*[got[n].data_ptr() for n in names]), S)
-    assert rc == 0
+    got = host_chain(host, model, contacts, args + cost,
+                     {n: want[n].shape for n in names})
     for n in names:
         err = float((got[n] - want[n]).abs().max())
         assert err <= 1e-10 * max(1.0, float(want[n].abs().max())), n
@@ -222,3 +220,34 @@ def test_op_count_nv35(icub):
              for sl in (slice(0, 1), slice(1, None))]
     assert (val, tan) == tuple(map(sum, zip(*parts)))
     assert 0 < val < tan
+
+
+def test_routes_follow_xla_near_the_branch_cut(host):
+    """K6's host build and chain_plain on the JAX test's full-iCub data
+    against fused_stage_derivatives (with_task) under jax.jit: within the
+    JAX test's 1e-5, and both follow it to 1e-10 of each output's max-abs
+    (the Pallas kernel in interpret mode sits 1e-5 off it there, its
+    polynomial acos amplified through the log's Jacobian)."""
+    m, contacts, ins = icub_soles_jax()
+
+    def one(q, v, a, f, fr, pr, R):
+        res = jct.fused_stage_derivatives(m, contacts, q, v, a, f, fr, pr, R,
+                                          with_task=True)
+        ((tau, C, g, dgdf), (dtq, dtv, M), (dCq, dCv, J), dgdq) = res[:4]
+        return dict(tau=tau, dtau_dq=dtq, dtau_dv=dtv, M=M, C=C, dCdq=dCq,
+                    dCdv=dCv, J=J, g=g, dgdq=dgdq, dgdf=dgdf,
+                    task=res[4][0], dtask=res[4][1])
+
+    xla = jax.jit(jax.vmap(one))(*ins)
+    model, cts = problems.icub_soles(device="cpu")
+    plain = chn.chain_plain(model, cts, *[torch.as_tensor(x) for x in ins])
+    got = host_chain(host, model, cts, ins,
+                     {n: plain[n].shape for n in chn._OUTS})
+    for n in chn._OUTS:
+        want = np.asarray(xla[n])
+        scale = max(1.0, float(np.abs(want).max()))
+        for route, x in (("host build", got[n]), ("chain_plain", plain[n])):
+            np.testing.assert_allclose(x.numpy(), want, rtol=1e-5,
+                                       atol=1e-5, err_msg=f"{route} {n}")
+            err = float(np.abs(x.numpy() - want).max())
+            assert err <= 1e-10 * scale, (route, n, err, scale)

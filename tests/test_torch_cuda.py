@@ -7,8 +7,9 @@ that machine need not have, hence --noconftest):
         tests/test_torch_cuda.py
 
 Each wrapper is held against its plain version on the same CUDA tensors
-in float64 (1e-10 relative to each output's max-abs; Kc at 20 and 34
-rows on dense rows and K6 also in float32, 1e-4; K6 also on the full
+in float64 (1e-10 relative to each output's max-abs; K1, K2 and Kc at
+the fleets' stage counts on seeded inputs and K6 also in float32, 1e-4,
+K1's and K2's outputs filled with NaN first; K6 also on the full
 iCub's nv 35 tree), the wrappers refuse
 inputs their kernels do not take (K6 a chain layout past its workspace),
 and one Newton update of a small fleet
@@ -228,6 +229,60 @@ def test_kc_matches_plain_on_stage_counts(dev, rows, fleet, dtype, tol):
         cd.kc.launches = 0
         _close(cd.kc(*args), cd.kc_plain(*args), tol)
         assert cd.kc.launches == 1
+
+
+def _k1_args(rng, S, dtype, dev):
+    """Seeded K1 inputs: M symmetric positive definite, J of full row rank,
+    about a third of the contact rows inactive."""
+    X = rng.standard_normal((S, 18, 18))
+    M = X @ np.swapaxes(X, -1, -2) / 18 + np.eye(18)
+    ins = (M, 0.3 * rng.standard_normal((S, 12, 18)),
+           (rng.uniform(size=(S, 12)) < 0.3).astype(float),
+           rng.standard_normal((S, 18, 48)), rng.standard_normal((S, 12, 48)),
+           rng.standard_normal((S, 18)), rng.standard_normal((S, 12)))
+    return [torch.as_tensor(x, dtype=dtype, device=dev).contiguous()
+            for x in ins]
+
+
+def _k2_args(rng, S, dtype, dev):
+    shapes = ((30, 48), (30,), (18, 18), (18, 18), (12, 12), (18, 18),
+              (12, 12), (18, 12), (48,), (30,))
+    return [torch.as_tensor(rng.standard_normal((S,) + sh), dtype=dtype,
+                            device=dev) for sh in shapes]
+
+
+# K1's and K2's library entries, their dims, inputs and output shapes
+_K12 = {"k1": ("rtt_condense_k1", (18, 12, 48), _k1_args,
+               ((18, 18), (18, 12), (12, 12), (30, 48), (30,))),
+        "k2": ("rtt_condense_k2", (18, 12, 12), _k2_args,
+               ((36, 36), (36, 12), (12, 12), (48,)))}
+
+
+@pytest.mark.parametrize("name", ["k1", "k2"])
+@pytest.mark.parametrize("fleet", [128 * 20, 128 * 24, 128 * 28])
+@pytest.mark.parametrize("dtype,tol", [(torch.float64, 1e-10),
+                                       (torch.float32, 1e-4)])
+def test_k1_k2_match_plain_on_stage_counts(dev, name, fleet, dtype, tol):
+    """K1 (a warp per stage, four stages a block) and K2 (a block of four
+    warps per stage) on seeded inputs: 1, 3 and 7 stages (K1's last block
+    part full) and the fleets' stage counts (standing 128 x 20, trot
+    128 x 24, walk 128 x 28); the library's outputs filled with NaN first,
+    so that an entry the kernel does not write shows; the wrapper counts
+    its launch."""
+    entry, dims, make, shapes = _K12[name]
+    wrapper, plain = getattr(cd, name), getattr(cd, name + "_plain")
+    rng = np.random.default_rng(fleet + (name == "k2"))
+    for S in (1, 3, 7, fleet):
+        args = make(rng, S, dtype, dev)
+        want = plain(*args)
+        outs = [torch.full((S,) + sh, float("nan"), dtype=dtype, device=dev)
+                for sh in shapes]
+        cd._launch(name, getattr(cd._lib(), entry), dims, args, outs)
+        torch.cuda.synchronize()
+        _close(outs, want, tol)
+        wrapper.launches = 0
+        _close(wrapper(*args), want, tol)
+        assert wrapper.launches == 1
 
 
 @pytest.mark.parametrize("with_cost", [False, True])

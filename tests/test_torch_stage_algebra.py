@@ -5,10 +5,12 @@ condense and Riccati kernels run (csrc/stage_algebra.cuh,
 condense_stage.cuh, riccati_stage.cuh) with g++, one "thread" per stage,
 and exposes them through a plain C interface. Here they are held against
 the port's plain PyTorch versions in f64: Gauss-Jordan and the products
-at 1e-12 on well-conditioned inputs, the stage bodies of K1, Kc, K2, K3
-on stages of the ANYmal contact OCP and K5 on seeded LQR data at 1e-12
-relative to each output's largest magnitude. Skipped only where g++ is
-absent."""
+(the tiled ones with 16-byte row runs on the card, gemm_rows and
+tile_tn) at 1e-12 on well-conditioned inputs, the stage bodies of K1, Kc,
+K2, K3 on stages of the ANYmal contact OCP and K5 on seeded LQR data at
+1e-12 relative to each output's largest magnitude, K1's, Kc's and K2's
+outputs filled with NaN first, so that an entry a body does not write
+shows. Skipped only where g++ is absent."""
 import ctypes
 import shutil
 
@@ -35,13 +37,17 @@ def lib():
     lib.rtt_host_gauss_jordan.argtypes = [P, I]
     lib.rtt_host_gemm_537.argtypes = [I, I, P, P, P, P, ctypes.c_double]
     lib.rtt_host_gemv_53.argtypes = [I, P, P, P, P, ctypes.c_double]
+    lib.rtt_host_gemm_rows.argtypes = [P, P, P]
+    lib.rtt_host_tile_tn.argtypes = [P, P, P]
+    lib.rtt_host_store_rows.argtypes = [P, P]
     lib.rtt_host_k1.argtypes = [ctypes.c_longlong] + [P] * 12
     lib.rtt_host_kc.argtypes = [I, ctypes.c_longlong] + [P] * 6
     lib.rtt_host_k2.argtypes = [ctypes.c_longlong] + [P] * 14
     lib.rtt_host_k3.argtypes = [ctypes.c_longlong] + [P] * 15
     lib.rtt_host_riccati_bwd.argtypes = [I, I, I] + [P] * 20
-    for name in ("gauss_jordan", "gemm_537", "gemv_53", "k1", "kc", "k2",
-                 "k3", "riccati_bwd"):
+    for name in ("gauss_jordan", "gemm_537", "gemv_53", "gemm_rows",
+                 "tile_tn", "store_rows", "k1", "kc", "k2", "k3",
+                 "riccati_bwd"):
         getattr(lib, f"rtt_host_{name}").restype = I
     return lib
 
@@ -72,6 +78,8 @@ def test_gauss_jordan(lib, n):
 
 @pytest.mark.parametrize("ta,tb", [(0, 0), (0, 1), (1, 0), (1, 1)])
 def test_gemm(lib, ta, tb):
+    """gemm_tiled (K5's products), C = D + alpha op(A) op(B), in 1 x 7
+    tiles, with and without the addend."""
     rng = np.random.default_rng(10 + 2 * ta + tb)
     A = torch.as_tensor(rng.standard_normal((3, 5) if ta else (5, 3)))
     B = torch.as_tensor(rng.standard_normal((7, 3) if tb else (3, 7)))
@@ -95,6 +103,36 @@ def test_gemv(lib, ta):
     y = torch.empty(5, dtype=torch.float64)
     assert lib.rtt_host_gemv_53(ta, _p(y), _p(A), _p(x), _p(d), 2.0) == 0
     _rel_close(y, d + 2.0 * ((A.T if ta else A) @ x), name="gemv")
+
+
+def test_gemm_rows(lib):
+    """C = A B in 3 x 8 register tiles, B's rows read in runs (K2's HyG
+    and CwyG)."""
+    rng = np.random.default_rng(30)
+    A = torch.as_tensor(rng.standard_normal((6, 5)))
+    B = torch.as_tensor(rng.standard_normal((5, 16)))
+    C = torch.full((6, 16), float("nan"), dtype=torch.float64)
+    assert lib.rtt_host_gemm_rows(_p(C), _p(A), _p(B)) == 0
+    _rel_close(C, A @ B, name="gemm_rows")
+
+
+def test_tile_tn(lib):
+    """One 4 x 8 tile of A^T B at column offsets inside wider rows (K2's
+    G^T HyG tiles)."""
+    rng = np.random.default_rng(31)
+    A = torch.as_tensor(rng.standard_normal((5, 6)))
+    B = torch.as_tensor(rng.standard_normal((5, 10)))
+    C = torch.full((4, 8), float("nan"), dtype=torch.float64)
+    assert lib.rtt_host_tile_tn(_p(C), _p(A), _p(B)) == 0
+    _rel_close(C, A[:, 2:6].T @ B[:, 2:10], name="tile_tn")
+
+
+def test_store_rows(lib):
+    """Rows of a padded block to contiguous memory (K1's G)."""
+    src = torch.arange(18, dtype=torch.float64).reshape(3, 6)
+    dst = torch.full((3, 4), float("nan"), dtype=torch.float64)
+    assert lib.rtt_host_store_rows(_p(dst), _p(src)) == 0
+    assert torch.equal(dst, src[:, :4])
 
 
 @pytest.fixture(scope="module")
@@ -122,12 +160,16 @@ def _empty(S, *shape):
     return torch.empty((S,) + shape, dtype=torch.float64)
 
 
+def _nans(S, *shape):
+    return torch.full((S,) + shape, float("nan"), dtype=torch.float64)
+
+
 def test_k1_stage(lib, stage_batch):
     x = stage_batch
     S = x["M"].shape[0]
     ins = [x[n] for n in ("M", "J", "inactive", "Tw1", "Tw2", "r1", "e2")]
-    outs = [_empty(S, NV, NV), _empty(S, NV, NF), _empty(S, NF, NF),
-            _empty(S, NY, W), _empty(S, NY)]
+    outs = [_nans(S, NV, NV), _nans(S, NV, NF), _nans(S, NF, NF),
+            _nans(S, NY, W), _nans(S, NY)]
     assert lib.rtt_host_k1(S, *[_p(t) for t in ins + outs]) == 0
     for name, got, want in zip(("inv11", "inv12", "Sinv", "G", "c0"), outs,
                                cd.k1_plain(*ins)):
@@ -190,8 +232,8 @@ def test_k2_stage(lib, stage_batch):
     S = stage_batch["M"].shape[0]
     _, _, ins = _k2_inputs(stage_batch)
     ins = [t.contiguous() for t in ins]
-    outs = [_empty(S, NX, NX), _empty(S, NX, NU), _empty(S, NU, NU),
-            _empty(S, W)]
+    outs = [_nans(S, NX, NX), _nans(S, NX, NU), _nans(S, NU, NU),
+            _nans(S, W)]
     assert lib.rtt_host_k2(S, *[_p(t) for t in ins + outs]) == 0
     for name, got, want in zip(("Qxx", "Qxu", "Quu", "gtil"), outs,
                                cd.k2_plain(*ins)):
