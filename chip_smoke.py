@@ -9,7 +9,7 @@ Phases, each of which raises (and so exits non-zero) on failure:
      per source, all at once;
   2. hold every kernel against its plain PyTorch version on the card, in
      float64 and float32: condense K1, Kc, K2, K3 on the stage slots of the
-     trot fleet (K1 and K2 also on the walk fleet's); the Riccati backward
+     trot fleet (K1, K2 and K3 also on the walk fleet's); the Riccati backward
      sweep K5 without switching rows
      (standing shapes) and with them (trot shapes); the chain kernel K6
      without the cost fold at the standing shapes and with it at the trot
@@ -59,7 +59,20 @@ Phases, each of which raises (and so exits non-zero) on failure:
      the float64 step gated against the plain float32 steps', then shown
      with one kernel at a time swapped for its plain version), time per
      MPC step, host time by part and the device idle share;
-  7. print the kernels' JSON line, the card line and the final status line.
+  7. "solve": OCPSolver.solve and the line searches through the kernels:
+     the golden problem in float64 through solve (16 iterations, against
+     the 16 updates to 1e-10 and the golden trace to 1e-6); the barrier
+     path of tests/test_barrier_schedule.py (N 6, mu 1e-2 to 1e-5) to KKT
+     < 1e-7; the B = 128 float32 trot fleet with the merit search (launch
+     counts, finite KKT, each accepted step at most its scenario's
+     fraction-to-boundary step, the float64 fleet's merit step through the
+     kernels against the plain versions to 1e-8, no synchronising call
+     added by the search; printed: scenarios that backtracked, ms per MPC
+     step with and without the search); the filter search through solve
+     on the B = 128 standing fleet in float32 (4 iterations: finite KKT,
+     launches per build); printed, the walk fleet's KKT after one MPC step
+     with the merit search;
+  8. print the kernels' JSON line, the card line and the final status line.
 The phase "readings" (not a default phase) prints the trot gate's readings
 on three fleet seeds and two iterates with the planted faults' on each,
 and at the later iterate where the float64 difference off the unit
@@ -79,6 +92,9 @@ import re
 import subprocess
 import sys
 import time
+import traceback
+import warnings
+from collections import Counter
 from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
@@ -100,7 +116,8 @@ HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {torch.float32: 67e12, torch.float64: 34e12}
 # kernel vs plain version, relative to each output's largest magnitude
 TOL = {torch.float64: 1e-10, torch.float32: 1e-4}
-ALL_PHASES = ("build", "kernels", "slice", "trot", "golden", "walk")
+ALL_PHASES = ("build", "kernels", "slice", "trot", "golden", "walk",
+              "solve")
 # the trot's float32 gate: each field's drift from the float64 step at most
 # TROT_K times the largest drift among the plain float32 step and the plain
 # steps from iterates jittered with these seeds: the largest round factor
@@ -572,14 +589,17 @@ def phase_kernels(dev):
         # K1 and K2 on the walk's own condense inputs (3584 stage slots)
         xwd = {k: v.to(dtype) for k, v in xw64.items()}
         k1w_in, k2w_in = _k12_inputs(xwd)
-        e1w = _compare("K1 walk", cd.k1(*k1w_in), cd.k1_plain(*k1w_in),
-                       dtype)
-        e2w = _compare("K2 walk", cd.k2(*k2w_in), cd.k2_plain(*k2w_in),
-                       dtype)
-        k3_in = [p1[3], p1[4], p2[3].contiguous()] + [
-            x[n] for n in ("Aqq", "Aqv", "xres_q", "Fv_res", "sA", "lam2",
-                           "lmdgmm")]
+        p1w, p2w = cd.k1_plain(*k1w_in), cd.k2_plain(*k2w_in)
+        e1w = _compare("K1 walk", cd.k1(*k1w_in), p1w, dtype)
+        e2w = _compare("K2 walk", cd.k2(*k2w_in), p2w, dtype)
+        k3_in, k3w_in = ([q1[3], q1[4], q2[3].contiguous()] + [
+            xx[n] for n in ("Aqq", "Aqv", "xres_q", "Fv_res", "sA", "lam2",
+                            "lmdgmm")]
+            for q1, q2, xx in ((p1, p2, x), (p1w, p2w, xwd)))
         e3 = _compare("K3", cd.k3(*k3_in), cd.k3_plain(*k3_in), dtype)
+        # K3 on the walk's own condense inputs (3584 stage slots)
+        e3w = _compare("K3 walk", cd.k3(*k3w_in), cd.k3_plain(*k3w_in),
+                       dtype)
         l0 = lqr_inputs(0, dtype, dev, N)
         e50 = _compare("K5 nf=0", bs.bwd(*l0), bs.bwd_plain(*l0), dtype)
         l12 = lqr_inputs(12, dtype, dev, Nt)
@@ -627,13 +647,19 @@ def phase_kernels(dev):
             ("K3", "K3 condense_k3", cd.k3, cd.k3_plain, k3_in, e3,
              S * flops_k3(nv, nu), None,
              "robotoc_tpu/ops/pallas_condense.py:399"),
+            ("K3w", "K3 condense_k3 walk", cd.k3, cd.k3_plain, k3w_in, e3w,
+             Sw * flops_k3(nv, nu), None,
+             "robotoc_tpu/ops/pallas_condense.py:399"),
         ]
         for key, name, kern, plain, args, err, flops, lib, repl in specs:
             outs = kern(*args)
+            # K3 reads only rows 0 .. nv - 1 of G and c0
+            read = ([args[0][:, :nv], args[1][:, :nv]] + list(args[2:])
+                    if kern is cd.k3 else args)
             recs[key] = _record(
                 name, "robotoc_tpu_torch/csrc/condense.cu", repl, err,
                 lambda: kern(*args), lambda: plain(*args),
-                bound(nbytes(*args) + nbytes(*outs), flops, dtype), lib)
+                bound(nbytes(*read) + nbytes(*outs), flops, dtype), lib)
         # K5: the main path's switching branch at the trot shapes; the
         # nf = 0 branch (standing path) beside it
         for nf, l_in, err, Nh in ((12, l12, e512, Nt), (0, l0, e50, N)):
@@ -993,16 +1019,18 @@ def phase_slice(dev):
 def trot_fleet(dtype, dev, seed=0, n=N, b=B):
     """The trot fleet in `dtype` (horizon n, default N): b scenarios (B)
     whose initial configurations `problems.fleet` moves with numpy seed
-    `seed`. Returns the problem, mk(use_kernels) -> the fleet's solver,
-    and (sol0, q0s, v0s)."""
+    `seed`. Returns the problem, mk(use_kernels, search=False) -> the
+    fleet's solver (search: its enable_line_search), and (sol0, q0s,
+    v0s)."""
     p = problems.anymal_trot(N=n, dtype=dtype, device=dev)
     mpc = p.mpc
 
-    def mk(k):
+    def mk(k, search=False):
         return OS.OCPSolver(p.model, mpc.contacts, p.costs, mpc.limits,
                             T=p.T, N=p.N, n_reserved_events=mpc.n_reserved,
                             options=OS.SolverOptions(
-                                switching_constraints=True, use_kernels=k))
+                                switching_constraints=True, use_kernels=k,
+                                enable_line_search=search))
 
     return p, mk, problems.fleet(p.solver, p.grid, p.q0, p.v0, b, seed=seed)
 
@@ -1305,15 +1333,17 @@ def phase_walk(dev):
                                            device=dev))
         v0s = v.to(dtype).expand(B, model.nv).contiguous()
 
-        def mk(k):
+        def mk(k, search=False):
             return OS.OCPSolver(model, objs[0], objs[2], objs[1], T=p.T,
                                 N=p.N, n_reserved_events=mpc.n_reserved,
                                 options=OS.SolverOptions(
                                     switching_constraints=True,
-                                    use_kernels=k))
+                                    use_kernels=k,
+                                    enable_line_search=search))
         return model, objs, sol0, q0s, v0s, mk
 
     model, (contacts, limits, costs, grid, _), sol0, q0s, v0s, mk = fleet(f32)
+    WALK_FLEET.update(mk=mk, grid=grid, sol0=sol0, q0s=q0s, v0s=v0s)
     sol_b, grid_b, q_b, v_b, _ = OS._fleet(sol0, grid, q0s, v0s)
     launches, out, (out_k, out_p) = _run_path(
         "walk", mk, grid, sol0, q0s, v0s, lambda: _parts(
@@ -1340,6 +1370,201 @@ def phase_walk(dev):
                biped_standing_launches=standing_launches)
     print("walk: " + json.dumps(out))
     return launches, out
+
+
+# the walk's float32 fleet, kept by phase_walk for phase_solve's reading
+WALK_FLEET = {}
+
+
+def sync_sites(fn):
+    """The synchronising CUDA calls fn makes, counted by the innermost line
+    of this repository on the stack when each was made: the warnings of
+    torch.cuda.set_sync_debug_mode("warn") while it runs."""
+    torch.cuda.synchronize()
+    sites = Counter()
+
+    def note(message, *args, **kwargs):
+        if "synchroniz" not in str(message).lower():
+            return
+        ours = [f for f in traceback.extract_stack()[:-1]
+                if f.filename.startswith(ROOT + os.sep)
+                and f.name not in ("note", "sync_sites")]
+        where = ours[-1] if ours else None
+        sites["?" if where is None else
+              f"{os.path.relpath(where.filename, ROOT)}:{where.lineno}"] += 1
+
+    with warnings.catch_warnings():
+        warnings.simplefilter("always")
+        warnings.showwarning = note
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return sites
+
+
+def _launches_per_build(tag, launches, builds, directions):
+    """solve launches K1, Kc, K2, K3 and K6 once per build and K5 once per
+    Newton direction."""
+    want = {k: directions if k == "K5" else builds for k in launches}
+    check(launches == want, f"{tag}: launches {launches} != {want} "
+          f"({builds} builds, {directions} directions)")
+
+
+def phase_solve(dev):
+    """OCPSolver.solve and the line searches on the card, through the
+    kernels: (a) the golden standing problem in float64 through solve, 16
+    iterations, against 16 updates (1e-10 of each field's max-abs) and
+    the golden trace (1e-6); (b) the barrier path of
+    tests/test_barrier_schedule.py (N 6, mu 1e-2 to 1e-5) to KKT < 1e-7
+    with that test's statistics; (c) the trot fleet in float32 with the
+    merit search: launches, finite KKT, each accepted step at most its
+    scenario's fraction-to-boundary step, the float64 fleet's merit step
+    through the kernels against the plain versions (1e-8), the
+    synchronising calls of one update with and without the search (the
+    search adds none), and, printed, how many scenarios backtracked and
+    ms per MPC step with and without the search; (d) the filter search
+    through solve on the standing fleet in float32, 4 iterations: finite
+    KKT and launches per build; (e) printed: the walk fleet's KKT after
+    one MPC step with the merit search (when the walk phase ran)."""
+    f32, f64 = torch.float32, torch.float64
+    out = {}
+    # (a) the golden problem through solve
+    ref = np.load(GOLDEN)
+    p = problems.anymal_standing(N=N, dtype=f64, device=dev)
+
+    def standing(pp, **opts):
+        return OS.OCPSolver(pp.model, pp.contacts, (pp.cost,), pp.limits,
+                            T=pp.T, N=pp.N, options=OS.SolverOptions(**opts))
+
+    solver = standing(p, max_iter=16, kkt_tol=0.0)
+    sol0 = solver.init_solution(p.grid, p.q0, p.v0)
+    reset_counts()
+    sol, st = solver.solve(p.grid, p.q0, p.v0, sol=sol0)
+    launches = read_counts()
+    check(int(st["iterations"]) == 16, f"golden solve: {st['iterations']}"
+          " iterations")
+    _launches_per_build("golden solve", launches, 17, 16)
+    sol_u = sol0
+    for _ in range(16):
+        sol_u, _, _, _ = solver.update(p.grid, p.q0, p.v0, sol_u)
+    worst = {n: float((getattr(sol, n) - getattr(sol_u, n)).abs().max())
+             / max(float(getattr(sol_u, n).abs().max()), 1e-30)
+             for n in FIELDS}
+    check(all(v <= 1e-10 for v in worst.values()),
+          f"golden solve vs 16 updates past 1e-10: {worst}")
+    gold = max(float(np.abs(getattr(sol, n).cpu().numpy() - ref[n]).max())
+               for n in ("q", "v", "a", "u", "f"))
+    check(gold <= 1e-6 * max(1.0, max(float(np.abs(ref[n]).max())
+                                      for n in ("q", "v", "a", "u", "f"))),
+          f"golden solve: off the golden trace by {gold:.3e}")
+    kkt_a = float(st["kkt_error"])
+    print(f"  solve golden: 16 iterations, kkt {kkt_a:.3e}; vs 16 updates, "
+          f"error / max-abs {max(worst.values()):.1e}; max |x - golden| "
+          f"{gold:.3e}; launches {launches}")
+    out["golden"] = dict(kkt=kkt_a, vs_updates=max(worst.values()),
+                         vs_golden=gold)
+    # (b) the barrier path (tests/test_barrier_schedule.py's problem)
+    pb = problems.anymal_standing(N=6, T=0.025 * 6, dtype=f64, device=dev)
+    solver = standing(pb, max_iter=30, kkt_tol=1e-7, barrier=1e-2,
+                      mu_min=1e-5, kkt_tol_mu=1e-4,
+                      mu_linear_decrease_factor=0.2,
+                      mu_superlinear_decrease_power=1.5)
+    sol, st, stats = solver.solve(pb.grid, pb.q0, pb.v0, statistics=True)
+    kkt_b = float(st["kkt_error"])
+    check(bool(st["convergence"]) and kkt_b < 1e-7 and stats.convergence,
+          f"barrier path: kkt {kkt_b:.3e}, {st}")
+    check(stats.barrier[0] == 1e-2 and np.isclose(stats.barrier[-1], 1e-5)
+          and len(stats.barrier) >= 3, f"barrier path: {stats.barrier}")
+    check(stats.iter == len(stats.kkt_error) > 0
+          and stats.kkt_error[-1] < 1e-7
+          and all(np.isfinite(k) for k in stats.kkt_error)
+          and stats.cpu_time > 0.0, f"barrier path statistics: {stats}")
+    print(f"  solve barrier path: mu {stats.barrier}, {stats.iter} "
+          f"iterations, kkt {kkt_b:.3e}, {stats.cpu_time:.0f} ms")
+    out["barrier_path"] = dict(mu=stats.barrier, iterations=stats.iter,
+                               kkt=kkt_b, ms=stats.cpu_time)
+    # (c) the trot fleet with the merit search, float32
+    pt, mk, (sol0, q0s, v0s) = trot_fleet(f32, dev)
+    s_ls, s_no = mk(True, "merit"), mk(True)
+    _mpc_step(s_ls, pt.grid, sol0, q0s, v0s)            # warm-up
+    torch.cuda.synchronize()
+    reset_counts()
+    sol_ls, kkts = _mpc_step(s_ls, pt.grid, sol0, q0s, v0s)
+    torch.cuda.synchronize()
+    launches = read_counts()
+    check(all(v == 2 for v in launches.values()),
+          f"trot merit: expected 1 launch of each kernel per update: "
+          f"{launches}")
+    check(all(bool(torch.isfinite(k).all()) for k in kkts),
+          "trot merit: KKT not finite")
+    sol_i, backtracked = sol0, []
+    for i in range(2):
+        new, _, a_ls, _ = s_ls.update(pt.grid, q0s, v0s, sol_i)
+        a_max = s_no.update(pt.grid, q0s, v0s, sol_i)[2]
+        check(bool((a_ls <= a_max).all()), f"trot merit update {i}: a step "
+              "past its fraction-to-boundary step")
+        backtracked.append(int((a_ls < a_max).sum()))
+        sol_i = new
+    p64, mk64, (sol64, q64, v64) = trot_fleet(f64, dev)
+    worst64, _ = _agree_f64("trot merit", lambda k: mk64(k, "merit"),
+                            p64.grid, sol64, q64, v64)
+    # the first use of the debug mode is discarded: it can count a call of
+    # its own, made at no line of the program
+    sync_sites(lambda: s_no.update(pt.grid, q0s, v0s, sol0))
+    sites = {name: sync_sites(lambda: sv.update(pt.grid, q0s, v0s, sol0))
+             for name, sv in (("without", s_no), ("with search", s_ls))}
+    syncs = {name: sum(c.values()) for name, c in sites.items()}
+    print(f"  solve trot: synchronising calls of one update by line: "
+          f"{ {k: dict(v) for k, v in sites.items()} }")
+    check(syncs["with search"] == syncs["without"],
+          f"trot merit: the search adds synchronising calls: {syncs}, at "
+          f"{dict(sites['with search'] - sites['without'])}")
+    ms = {name: host_ms(lambda: _mpc_step(sv, pt.grid, sol0, q0s, v0s),
+                        reps=3)
+          for name, sv in (("with search", s_ls), ("without", s_no))}
+    print(f"  solve trot merit (B={B}, float32): launches {launches}; fleet "
+          f"KKT max {float(kkts[-1].max()):.4e}; scenarios backtracked, "
+          f"update 1 / 2: {backtracked[0]} / {backtracked[1]} of {B}; "
+          f"synchronising calls in one update {syncs}; ms per MPC step "
+          f"{ms}")
+    out["trot_merit"] = dict(launches=launches,
+                             fleet_max_kkt=float(kkts[-1].max()),
+                             backtracked=backtracked, syncs=syncs,
+                             ms_per_mpc_step=ms, f64_agreement=worst64)
+    # (d) the filter through solve on the standing fleet, float32
+    ps = problems.anymal_standing(N=N, dtype=f32, device=dev)
+    _, (sol0, q0s, v0s) = standing_fleet(ps, B)
+    solver = standing(ps, max_iter=4, enable_line_search="filter")
+    reset_counts()
+    sol, st = solver.solve(ps.grid, q0s, v0s, sol=sol0)
+    launches = read_counts()
+    loops = int(st["iterations"].max())
+    check(bool(torch.isfinite(st["kkt_error"]).all()),
+          "standing filter solve: KKT not finite")
+    _launches_per_build("standing filter solve", launches, loops + 1, loops)
+    print(f"  solve standing filter (B={B}, float32, max_iter 4): "
+          f"{loops} iterations, fleet KKT max "
+          f"{float(st['kkt_error'].max()):.4e}, steps by iteration (min) "
+          + ", ".join(f"{float(a):.3g}" for a in
+                      st["step_size_history"].amin(dim=0))
+          + f"; launches {launches}")
+    out["standing_filter"] = dict(iterations=loops, launches=launches,
+                                  fleet_max_kkt=float(st["kkt_error"].max()))
+    # (e) the walk fleet with the merit search, printed
+    if WALK_FLEET:
+        w = WALK_FLEET
+        _, kkts = _mpc_step(w["mk"](True, "merit"), w["grid"], w["sol0"],
+                            w["q0s"], w["v0s"])
+        out["walk_merit_kkt"] = float(kkts[-1].max())
+        print(f"  solve walk merit (B={B}, float32): fleet KKT max after "
+              f"one MPC step {out['walk_merit_kkt']:.4e} (printed, not "
+              "gated)")
+    else:
+        print("  solve walk merit: the walk phase did not run; no reading")
+    print("solve: " + json.dumps(out))
+    return out
 
 
 def _summary(out):
@@ -1437,9 +1662,11 @@ def main(phases=ALL_PHASES):
     if "walk" in phases:
         launches, out = phase_walk(dev)
         note(launches, (("K6s", "K6"), ("Kc34", "Kc"), ("K1w", "K1"),
-                        ("K2w", "K2")), "walk: " + step)
+                        ("K2w", "K2"), ("K3w", "K3")), "walk: " + step)
         note(out["biped_standing_launches"], (("K6s nofold", "K6"),),
              "biped standing OCP (N 4, one scenario, float64): 12 updates")
+    if "solve" in phases:
+        phase_solve(dev)
     print(f"total {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": list(recs.values())}))
     print(card)

@@ -59,6 +59,25 @@ def wrench_cone_matrix(mu, X, Y):
     return torch.stack([torch.stack(r, dim=-1) for r in rows], dim=-2)
 
 
+def residual(model, contacts, q, f_stack, friction_coefs):
+    """g (dimc_cone,) alone for one sample (no derivatives): the first
+    output of residual_and_jac."""
+    R_w, p_w = rm.forward_kinematics(model, q)
+    offs = contacts.f_offsets
+    gs = []
+    for c in range(contacts.n_contacts):
+        if contacts.types[c] == POINT:
+            Rf, _ = rm.frame_placement(model, contacts.frame_ids[c], R_w,
+                                       p_w)
+            gs.append(cone_matrix(friction_coefs[c])
+                      @ (Rf @ f_stack[offs[c]:offs[c] + 3]))
+        else:
+            W = wrench_cone_matrix(friction_coefs[c], contacts.rect[c, 0],
+                                   contacts.rect[c, 1])
+            gs.append(W @ f_stack[offs[c]:offs[c] + 6])
+    return torch.cat(gs)
+
+
 def residual_and_jac(model, contacts, q, f_stack, friction_coefs):
     """g (dimc_cone,), dg/df (dimc_cone, nf), dg/dq (dimc_cone, nv) for one
     sample. f_stack: (nf,) local forces; friction_coefs: (nc,)."""

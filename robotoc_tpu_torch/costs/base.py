@@ -1,7 +1,9 @@
 """Cost container and the per-stage quadratization interface
 (counterpart of robotoc_tpu/costs/base.py). Components have
 quadratize_stage / quadratize_terminal methods returning Gauss-Newton
-blocks; missing blocks are zeros so a tuple of components just sums."""
+blocks; missing blocks are zeros so a tuple of components just sums.
+Their eval_* methods give the cost alone (the line search's evaluation
+pass)."""
 from __future__ import annotations
 
 from typing import NamedTuple
@@ -116,3 +118,16 @@ def kin_fold_frames(components):
         if fids is not None:
             return tuple(fids)
     return None
+
+
+def eval_stage(components, model, q, v, a, u, f, t, dt):
+    return sum(comp.eval_stage(model, q, v, a, u, f, t, dt)
+               for comp in components)
+
+
+def eval_terminal(components, model, q, v, t):
+    return sum(comp.eval_terminal(model, q, v, t) for comp in components)
+
+
+def eval_impact(components, model, q, v, dv, t):
+    return sum(comp.eval_impact(model, q, v, dv, t) for comp in components)

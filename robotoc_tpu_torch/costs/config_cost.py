@@ -1,7 +1,8 @@
 """Configuration-space quadratic cost (counterpart of
 robotoc_tpu/costs/config_cost.py): quadratic penalties on (q, v, a, u)
 with separate stage and terminal weights, dt-scaled at stages. The
-floating-base q-error uses the Lie difference and its tangent Jacobian."""
+floating-base q-error uses the Lie difference and its tangent Jacobian.
+The eval_* functions give the cost alone."""
 from __future__ import annotations
 
 import dataclasses
@@ -24,6 +25,15 @@ class ConfigurationSpaceCost:
     q_weight_impact: torch.Tensor
     v_weight_impact: torch.Tensor
     dv_weight_impact: torch.Tensor
+
+    def eval_stage(self, model, q, v, a, u, f, t, dt):
+        return eval_stage(model, self, q, v, a, u, dt)
+
+    def eval_terminal(self, model, q, v, t):
+        return eval_terminal(model, self, q, v)
+
+    def eval_impact(self, model, q, v, dv, t):
+        return eval_impact(model, self, q, v, dv)
 
     def quadratize_stage(self, model, nf, q, v, a, u, f, t, dt):
         from .base import StageQuad
@@ -67,6 +77,13 @@ def make_config_cost(model: rm.RobotModel, q_ref=None,
         dv_weight_impact=w("dv_weight_impact", nv))
 
 
+def _qdiff(model, cost, q):
+    """q (-) q_ref (one sample)."""
+    if not model.floating_base:
+        return q - cost.q_ref
+    return rm.difference(model, cost.q_ref, q)
+
+
 def _qdiff_and_jac(model, cost, q):
     """q (-) q_ref and the tangent Jacobian J with d(qdiff) = J dq (one
     sample)."""
@@ -76,13 +93,34 @@ def _qdiff_and_jac(model, cost, q):
             rm.d_difference_dq1(model, cost.q_ref, q))
 
 
+def eval_stage(model, cost, q, v, a, u, dt, qdiff=None):
+    if qdiff is None:
+        qdiff = _qdiff(model, cost, q)
+    return dt * (0.5 * (torch.sum(cost.q_weight * qdiff ** 2)
+                        + torch.sum(cost.v_weight * (v - cost.v_ref) ** 2)
+                        + torch.sum(cost.a_weight * a ** 2)
+                        + torch.sum(cost.u_weight * u ** 2)))
+
+
+def eval_terminal(model, cost, q, v, qdiff=None):
+    if qdiff is None:
+        qdiff = _qdiff(model, cost, q)
+    return 0.5 * (torch.sum(cost.q_weight_terminal * qdiff ** 2)
+                  + torch.sum(cost.v_weight_terminal * (v - cost.v_ref) ** 2))
+
+
+def eval_impact(model, cost, q, v, dv, qdiff=None):
+    if qdiff is None:
+        qdiff = _qdiff(model, cost, q)
+    return 0.5 * (torch.sum(cost.q_weight_impact * qdiff ** 2)
+                  + torch.sum(cost.v_weight_impact * (v - cost.v_ref) ** 2)
+                  + torch.sum(cost.dv_weight_impact * dv ** 2))
+
+
 def quadratize_stage(model, cost, q, v, a, u, dt):
     """(cost, lq, lv, la, lu, Wq, Wv, Wa, Wu), dt-scaled, Gauss-Newton."""
     qdiff, J = _qdiff_and_jac(model, cost, q)
-    c = dt * (0.5 * (torch.sum(cost.q_weight * qdiff ** 2)
-                     + torch.sum(cost.v_weight * (v - cost.v_ref) ** 2)
-                     + torch.sum(cost.a_weight * a ** 2)
-                     + torch.sum(cost.u_weight * u ** 2)))
+    c = eval_stage(model, cost, q, v, a, u, dt, qdiff)
     if J is None:
         lq = dt * cost.q_weight * qdiff
         Wq = torch.diag(dt * cost.q_weight)
@@ -97,8 +135,7 @@ def quadratize_stage(model, cost, q, v, a, u, dt):
 
 def quadratize_terminal(model, cost, q, v):
     qdiff, J = _qdiff_and_jac(model, cost, q)
-    c = 0.5 * (torch.sum(cost.q_weight_terminal * qdiff ** 2)
-               + torch.sum(cost.v_weight_terminal * (v - cost.v_ref) ** 2))
+    c = eval_terminal(model, cost, q, v, qdiff)
     if J is None:
         lq = cost.q_weight_terminal * qdiff
         Wq = torch.diag(cost.q_weight_terminal)
@@ -112,9 +149,7 @@ def quadratize_terminal(model, cost, q, v):
 def quadratize_impact(model, cost, q, v, dv):
     """(cost, lq, lv, ldv, Wq, Wv, Wdv) with the impact weights."""
     qdiff, J = _qdiff_and_jac(model, cost, q)
-    c = 0.5 * (torch.sum(cost.q_weight_impact * qdiff ** 2)
-               + torch.sum(cost.v_weight_impact * (v - cost.v_ref) ** 2)
-               + torch.sum(cost.dv_weight_impact * dv ** 2))
+    c = eval_impact(model, cost, q, v, dv, qdiff)
     if J is None:
         lq = cost.q_weight_impact * qdiff
         Wq = torch.diag(cost.q_weight_impact)

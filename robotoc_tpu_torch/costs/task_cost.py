@@ -17,6 +17,12 @@ from ..ops import lie
 from .base import ImpactQuad, StageQuad, TerminalQuad
 
 
+def base_rotation_residual(q, quat_ref):
+    """r = log3(R_ref^T R_base(q)) (one sample)."""
+    R = lie.quat_to_rot(q[3:7])
+    return lie.so3_log(lie.quat_to_rot(quat_ref).T @ R)
+
+
 def base_rotation_quad(model, q, quat_ref, active, w):
     """(cost, lq, Qqq) of r = log3(R_ref^T R_base(q)) on the base-rotation
     tangent rows; the 3x3 Jacobian by jacfwd over a right perturbation."""
@@ -56,6 +62,20 @@ class BaseRotationCost:
     def _quad(self, model, q, t, w):
         quat_ref, active = self.ref(t)
         return base_rotation_quad(model, q, quat_ref, active, w)
+
+    def _eval(self, q, t, w):
+        quat_ref, active = self.ref(t)
+        r = base_rotation_residual(q, quat_ref)
+        return 0.5 * active * torch.sum(w * r * r)
+
+    def eval_stage(self, model, q, v, a, u, f, t, dt):
+        return dt * self._eval(q, t, self.weight)
+
+    def eval_terminal(self, model, q, v, t):
+        return self._eval(q, t, self.weight_terminal)
+
+    def eval_impact(self, model, q, v, dv, t):
+        return self._eval(q, t, self.weight_impact)
 
     def quadratize_stage(self, model, nf, q, v, a, u, f, t, dt):
         c, lq, Qqq = self._quad(model, q, t, self.weight)
@@ -125,6 +145,24 @@ class MultiFrameTaskCost:
         task = self._task(model, q)
         Jq = rm.tangent_jacobian(model, q, lambda qq: self._task(model, qq))
         return self._quad_kin(t, w_foot, w_com, task, Jq)
+
+    def _eval(self, model, q, t, w_foot, w_com):
+        ref, act = self._ref_active(t)
+        w = self.task_weight(w_foot, w_com) * act
+        r = self._task(model, q) - ref
+        return 0.5 * torch.sum(w * r * r)
+
+    def eval_stage(self, model, q, v, a, u, f, t, dt):
+        return dt * self._eval(model, q, t, self.foot_weight,
+                               self.com_weight)
+
+    def eval_terminal(self, model, q, v, t):
+        return self._eval(model, q, t, self.foot_weight_terminal,
+                          self.com_weight_terminal)
+
+    def eval_impact(self, model, q, v, dv, t):
+        return self._eval(model, q, t, self.foot_weight_impact,
+                          self.com_weight_impact)
 
     def quadratize_stage_kin(self, model, nf, q, v, a, u, f, t, dt, task,
                              Jq):

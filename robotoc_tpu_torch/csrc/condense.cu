@@ -3,9 +3,12 @@
 // Replace robotoc_tpu ops/pallas_condense.py: _k1_kernel (launch :331),
 // _kc_kernel (:348), _k2_kernel (:377), _k3_kernel (:399).
 //
-// Design. K3 runs one thread block per stage, the stage's blocks in
-// shared memory, threads over the entries of each output (csrc/
-// condense_stage.cuh). K1 and Kc run a warp per stage, four stages a
+// Design (bodies in csrc/condense_stage.cuh). K3 runs a thread per
+// 16-byte column chunk of a stage's [A | Bm] rows (12 threads a stage in
+// f32, 24 in f64): no chunk needs another's values, so there is no shared
+// memory and no barrier; each thread streams its 36 rows from device
+// memory in batches of 12, loads before stores, and keeps its lx or lu
+// sums in registers. K1 and Kc run a warp per stage, four stages a
 // block, with warp barriers only. Kc: its stage does about 0.2 us of work,
 // too little to pay for a block and its barriers, so each warp stages its
 // own rows by 16-byte cp.async, forms the upper triangle of its 30 x 30
@@ -54,7 +57,7 @@ extern __shared__ __align__(16) unsigned char rtt_smem[];
 
 namespace {
 
-constexpr int kThreads = 256;   // K3's block
+constexpr int kK3Threads = 128;   // K3's block
 constexpr int kWarps = 4;       // stages a block of K1 and Kc
 
 template <typename T>
@@ -126,28 +129,36 @@ k2_kernel(const T* __restrict__ G, const T* __restrict__ c0,
       threadIdx.x, blockDim.x);
 }
 
-// K3: a thread block per stage
+// K3: a thread per 16-byte column chunk of a stage (K3Stage::NCH a
+// stage), kK3Threads a block; a block's stages need not start at its
+// first thread
 template <typename T, int NV, int NU, int NF>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kK3Threads)
 k3_kernel(const T* __restrict__ G, const T* __restrict__ c0,
           const T* __restrict__ gtil, const T* __restrict__ Aqq,
           const T* __restrict__ Aqv, const T* __restrict__ xres_q,
           const T* __restrict__ Fv_res, const T* __restrict__ sA,
           const T* __restrict__ lam2, const T* __restrict__ lmdgmm,
           T* __restrict__ A, T* __restrict__ Bm, T* __restrict__ xres,
-          T* __restrict__ lx, T* __restrict__ lu) {
-  constexpr int W = 2 * NV + NU, NY = NV + NF, NX = 2 * NV;
-  const long long s = blockIdx.x;
-  rtt::K3Stage<T, NV, NU, NF>::run(
-      G + s * NY * W, c0 + s * NY, gtil + s * W, Aqq + s * NV * NV,
-      Aqv + s * NV * NV, xres_q + s * NV, Fv_res + s * NV, sA + s,
-      lam2 + s * NX, lmdgmm + s * NX, A + s * NX * NX, Bm + s * NX * NU,
-      xres + s * NX, lx + s * NX, lu + s * NU, smem<T>(), threadIdx.x,
-      blockDim.x);
+          T* __restrict__ lx, T* __restrict__ lu, long long S) {
+  using K = rtt::K3Stage<T, NV, NU, NF>;
+  constexpr int W = K::W, NY = K::NY, NX = K::NX;
+  const long long t =
+      static_cast<long long>(blockIdx.x) * kK3Threads + threadIdx.x;
+  const long long s = t / K::NCH;
+  const int ch = static_cast<int>(t % K::NCH);
+  if (s >= S) return;
+  const T sAs = sA[s];
+  for (int i = ch; i < NX; i += K::NCH)
+    xres[s * NX + i] = K::xres_at(c0 + s * NY, xres_q + s * NV,
+                                  Fv_res + s * NV, sAs, i);
+  K::chunk(G + s * NY * W, gtil + s * W, Aqq + s * NV * NV,
+           Aqv + s * NV * NV, sAs, lam2 + s * NX, lmdgmm + s * NX,
+           A + s * NX * NX, Bm + s * NX * NU, lx + s * NX, lu + s * NU, ch);
 }
 
 // Launch `kernel` over S blocks of THREADS threads with WS scalars of
-// dynamic shared memory.
+// dynamic shared memory (K2: a block per stage).
 template <typename T, int WS, int THREADS, typename K, typename... Args>
 int launch(K kernel, long long S, void* stream, Args... args) {
   const size_t bytes = sizeof(T) * WS;
@@ -231,11 +242,15 @@ int k3_typed(const void* G, const void* c0, const void* gtil,
              const void* lmdgmm, void* A, void* Bm, void* xres, void* lx,
              void* lu, long long S, void* stream) {
   using K = rtt::K3Stage<T, 18, 12, 12>;
-  return launch<T, K::WS, kThreads>(
-      k3_kernel<T, 18, 12, 12>, S, stream, in<T>(G), in<T>(c0), in<T>(gtil),
-      in<T>(Aqq), in<T>(Aqv), in<T>(xres_q), in<T>(Fv_res), in<T>(sA),
-      in<T>(lam2), in<T>(lmdgmm), out<T>(A), out<T>(Bm), out<T>(xres),
-      out<T>(lx), out<T>(lu));
+  const long long threads = S * K::NCH;
+  const unsigned blocks =
+      static_cast<unsigned>((threads + kK3Threads - 1) / kK3Threads);
+  k3_kernel<T, 18, 12, 12><<<blocks, kK3Threads, 0,
+                             static_cast<cudaStream_t>(stream)>>>(
+      in<T>(G), in<T>(c0), in<T>(gtil), in<T>(Aqq), in<T>(Aqv),
+      in<T>(xres_q), in<T>(Fv_res), in<T>(sA), in<T>(lam2), in<T>(lmdgmm),
+      out<T>(A), out<T>(Bm), out<T>(xres), out<T>(lx), out<T>(lu), S);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace

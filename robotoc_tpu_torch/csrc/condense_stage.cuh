@@ -433,52 +433,125 @@ struct K2Stage {
 //   A = [[Aqq, Aqv], [sA Gq, I + sA Gv]], Bm = [0; sA Gu],
 //   xres = [xres_q; Fv_res + sA c0a],
 //   lx = gtil_x + A^T lam2 - lmdgmm, lu = gtil_u + Bm^T lam2.
+// Row i of [A | Bm] (W = NX + NU columns) is [Aqq_i, Aqv_i | 0] for
+// i < NV and sA G_{i-NV} + [e_i | 0] for i >= NV, so a chunk of V = 16 /
+// sizeof(T) columns needs nothing of the others: `chunk` streams its NX
+// rows from device memory RB at a time (every load of a batch before its
+// first store), writes its V entries of each row of A or Bm in one
+// 16-byte store and sums them times lam2[i] in registers, i in order from
+// 0 (the plain version's order), for its entries of lx or lu. G, lam2,
+// gtil and lmdgmm come in 16-byte loads; Aqq and Aqv in pairs (their f32
+// rows are 72 bytes apart). `xres_at` is one entry of xres. On the card a
+// thread runs one chunk of one stage and its share of xres: no shared
+// memory, no barrier, nothing re-read; the host runs a stage's chunks in
+// turn (`run`).
 template <typename T, int NV, int NU, int NF>
 struct K3Stage {
-  static constexpr int W = 2 * NV + NU, NX = 2 * NV;
-  static constexpr int WS = NX * NX + NX * NU + NX;
+  static constexpr int W = 2 * NV + NU, NX = 2 * NV, NY = NV + NF;
+  static constexpr int V = 16 / sizeof(T), NCH = W / V, RB = 12;
+  static_assert(NX % V == 0 && NU % V == 0 && NV % 2 == 0 && NX % RB == 0 &&
+                    RB % V == 0,
+                "whole 16-byte chunks, pairs and batches");
 
+  // x[0..2) = p[0..2): one 8-byte (f32) or 16-byte (f64) load on the card
+  static RTT_HD void load_pair(T* x, const T* p) {
+#if defined(__CUDA_ARCH__)
+    if constexpr (sizeof(T) == 4) {
+      const float2 v = *reinterpret_cast<const float2*>(p);
+      x[0] = v.x, x[1] = v.y;
+    } else {
+      const double2 v = *reinterpret_cast<const double2*>(p);
+      x[0] = v.x, x[1] = v.y;
+    }
+#else
+    x[0] = p[0], x[1] = p[1];
+#endif
+  }
+
+  static RTT_HD T xres_at(const T* __restrict__ c0,
+                          const T* __restrict__ xres_q,
+                          const T* __restrict__ Fv_res, T sA, int i) {
+    return (i < NV) ? xres_q[i] : Fv_res[i - NV] + sA * c0[i - NV];
+  }
+
+  // columns ch V .. ch V + V - 1 of [A | Bm], and their lx or lu entries
+  static RTT_HD void chunk(const T* __restrict__ G,
+                           const T* __restrict__ gtil,
+                           const T* __restrict__ Aqq,
+                           const T* __restrict__ Aqv, T sA,
+                           const T* __restrict__ lam2,
+                           const T* __restrict__ lmdgmm, T* __restrict__ A,
+                           T* __restrict__ Bm, T* __restrict__ lx,
+                           T* __restrict__ lu, int ch) {
+    const int c = ch * V;
+    const bool in_a = c < NX;
+    T acc[V];
+    RTT_UNROLL
+    for (int u = 0; u < V; ++u) acc[u] = T(0);
+    RTT_UNROLL
+    for (int i0 = 0; i0 < NX; i0 += RB) {
+      T row[RB][V], lam[RB];
+      load_vec<T, RB>(lam, lam2 + i0);
+      RTT_UNROLL
+      for (int r = 0; r < RB; ++r) {
+        const int i = i0 + r;
+        if (i >= NV) {
+          load_vec<T, V>(row[r], G + (i - NV) * W + c);
+        } else if (in_a) {
+          RTT_UNROLL
+          for (int u = 0; u < V; u += 2) {
+            const int j = c + u;
+            load_pair(row[r] + u, j < NV ? Aqq + i * NV + j
+                                         : Aqv + i * NV + (j - NV));
+          }
+        } else {
+          RTT_UNROLL
+          for (int u = 0; u < V; ++u) row[r][u] = T(0);
+        }
+      }
+      RTT_UNROLL
+      for (int r = 0; r < RB; ++r) {
+        const int i = i0 + r;
+        if (i >= NV) {
+          RTT_UNROLL
+          for (int u = 0; u < V; ++u) {
+            const int j = c + u;
+            const T g = sA * row[r][u];
+            row[r][u] = (in_a && j >= NV) ? (i == j ? T(1) : T(0)) + g : g;
+          }
+        }
+        store_vec<T, V>(in_a ? A + i * NX + c : Bm + i * NU + (c - NX),
+                        row[r]);
+        RTT_UNROLL
+        for (int u = 0; u < V; ++u) acc[u] += row[r][u] * lam[r];
+      }
+    }
+    T g[V], out[V];
+    load_vec<T, V>(g, gtil + c);
+    if (in_a) {
+      T m[V];
+      load_vec<T, V>(m, lmdgmm + c);
+      RTT_UNROLL
+      for (int u = 0; u < V; ++u) out[u] = (g[u] + acc[u]) - m[u];
+      store_vec<T, V>(lx + c, out);
+    } else {
+      RTT_UNROLL
+      for (int u = 0; u < V; ++u) out[u] = g[u] + acc[u];
+      store_vec<T, V>(lu + (c - NX), out);
+    }
+  }
+
+  // one stage, its chunks in turn (the host's loop; lane, nl as a team)
   static RTT_HD void run(const T* G, const T* c0, const T* gtil,
                          const T* Aqq, const T* Aqv, const T* xres_q,
-                         const T* Fv_res, const T* sAp, const T* lam2g,
-                         const T* lmdgmm, T* Ag, T* Bg, T* xres, T* lx,
-                         T* lu, T* ws, int tid, int nt) {
-    T* A = ws;
-    T* Bm = A + NX * NX;
-    T* lam2 = Bm + NX * NU;
+                         const T* Fv_res, const T* sAp, const T* lam2,
+                         const T* lmdgmm, T* A, T* Bm, T* xres, T* lx,
+                         T* lu, int lane, int nl) {
     const T sA = sAp[0];
-    for (int x = tid; x < NX * NX; x += nt) {
-      const int i = x / NX, j = x % NX;
-      T val;
-      if (i < NV) {
-        val = (j < NV) ? Aqq[i * NV + j] : Aqv[i * NV + (j - NV)];
-      } else {
-        const T g = sA * G[(i - NV) * W + j];
-        val = (j < NV) ? g : ((i == j ? T(1) : T(0)) + g);
-      }
-      A[x] = val;
-      Ag[x] = val;
-    }
-    for (int x = tid; x < NX * NU; x += nt) {
-      const int i = x / NU, j = x % NU;
-      const T val = (i < NV) ? T(0) : sA * G[(i - NV) * W + NX + j];
-      Bm[x] = val;
-      Bg[x] = val;
-    }
-    for (int i = tid; i < NX; i += nt)
-      xres[i] = (i < NV) ? xres_q[i] : Fv_res[i - NV] + sA * c0[i - NV];
-    copy(lam2, lam2g, NX, tid, nt);
-    block_sync();
-    for (int j = tid; j < NX; j += nt) {
-      T acc = T(0);
-      for (int i = 0; i < NX; ++i) acc += A[i * NX + j] * lam2[i];
-      lx[j] = (gtil[j] + acc) - lmdgmm[j];
-    }
-    for (int j = tid; j < NU; j += nt) {
-      T acc = T(0);
-      for (int i = 0; i < NX; ++i) acc += Bm[i * NU + j] * lam2[i];
-      lu[j] = gtil[NX + j] + acc;
-    }
+    for (int i = lane; i < NX; i += nl)
+      xres[i] = xres_at(c0, xres_q, Fv_res, sA, i);
+    for (int ch = lane; ch < NCH; ch += nl)
+      chunk(G, gtil, Aqq, Aqv, sA, lam2, lmdgmm, A, Bm, lx, lu, ch);
   }
 };
 

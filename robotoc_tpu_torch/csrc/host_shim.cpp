@@ -195,12 +195,11 @@ int rtt_host_k3(long long S, const double* G, const double* c0,
                 const double* lam2, const double* lmdgmm, double* A,
                 double* Bm, double* xres, double* lx, double* lu) {
   using K = K3Stage<double, NV, NU, NF>;
-  std::vector<double> ws(K::WS);
   for (long long s = 0; s < S; ++s)
     K::run(G + s * NY * W, c0 + s * NY, gtil + s * W, Aqq + s * NV * NV,
            Aqv + s * NV * NV, xres_q + s * NV, Fv_res + s * NV, sA + s,
            lam2 + s * NX, lmdgmm + s * NX, A + s * NX * NX, Bm + s * NX * NU,
-           xres + s * NX, lx + s * NX, lu + s * NU, ws.data(), 0, 1);
+           xres + s * NX, lx + s * NX, lu + s * NU, 0, 1);
   return 0;
 }
 

@@ -11,7 +11,6 @@ from __future__ import annotations
 
 import dataclasses
 
-import numpy as np
 import torch
 from torch.func import jacfwd
 
@@ -62,9 +61,10 @@ class ContactModel:
         return sum(self.cone_dims)
 
     def _repeat(self, cmask, reps):
-        idx = torch.as_tensor(np.repeat(np.arange(self.n_contacts), reps),
-                              device=cmask.device)
-        return cmask[..., idx]
+        # column c repeated reps[c] times, from device tensors only (a
+        # host-made index would synchronise on its copy to the card)
+        return torch.cat([cmask[..., c:c + 1].expand(
+            cmask.shape[:-1] + (r,)) for c, r in enumerate(reps)], dim=-1)
 
     def force_mask(self, cmask):
         """(..., nc) activity -> (..., max_dimf) per-force-row mask."""
@@ -216,8 +216,8 @@ def _fused_forward(model, q, v, a, gravity_on):
             vJ = v[vo:vo + 6].unsqueeze(0)
             aJ = a[vo:vo + 6].unsqueeze(0)
         else:
-            voffs = [model.v_offs[i] for i in idx]
-            ax = model.axis[idx]
+            voffs = rm._index([model.v_offs[i] for i in idx], q.device)
+            ax = model.axis[rm._index(idxs, q.device)]
             zk = torch.zeros((k, 3), dtype=dt, device=q.device)
             vax = v[voffs].unsqueeze(-1) * ax
             aax = a[voffs].unsqueeze(-1) * ax
@@ -268,13 +268,14 @@ def _rnea_backward(model, PL_R, PL_p, VS, A_tot, f_joint):
             for r in range(6):
                 tau[vo + r] = Fl[0, r]
         else:
-            ax = model.axis[idx]
+            ax = model.axis[rm._index(idxs, Fl.device)]
             half = Fl[:, 3:] if jt == rm.REVOLUTE else Fl[:, :3]
             tq = torch.sum(half * ax, dim=-1)
             for n, i in enumerate(idx):
                 tau[model.v_offs[i]] = tq[n]
         if par[0] >= 0:
-            ft = force_transform(PL_R[idx], PL_p[idx], Fl)
+            ix = rm._index(idxs, Fl.device)
+            ft = force_transform(PL_R[ix], PL_p[ix], Fl)
             for n, j in enumerate(par):
                 FS[j] = FS[j] + ft[n]
     return torch.stack(tau, dim=0)
@@ -285,8 +286,9 @@ def _task_outputs(model, contacts, RS, PS):
     positions of the contact frames (contact order), then the CoM. The
     gait cost stack's kinematics (costs/task_cost.MultiFrameTaskCost) as a
     by-product of the shared chain."""
-    fids = list(contacts.frame_ids)
-    pars = [model.frame_parents[f] for f in fids]
+    fids = rm._index(contacts.frame_ids, RS.device)
+    pars = rm._index([model.frame_parents[f] for f in contacts.frame_ids],
+                     RS.device)
     feet = rm._mv(RS[pars], model.frame_p[fids]) + PS[pars]
     ci = rm._mv(RS, model.com) + PS
     com = (torch.sum(model.mass.unsqueeze(-1) * ci, dim=-2)
@@ -296,7 +298,7 @@ def _task_outputs(model, contacts, RS, PS):
 
 def _cone_rows(contacts, cs, typ, Rw, fl, fric):
     """Cone values (k, rows) and force Jacobian blocks (k, rows, typ) of
-    the contacts `cs` of one type."""
+    the contacts `cs` (an index tensor) of one type."""
     from ..constraints import friction_cone as fcone
     if typ == POINT:
         Cm = fcone.cone_matrix(fric[cs])                     # (k, 5, 3)
@@ -307,18 +309,21 @@ def _cone_rows(contacts, cs, typ, Rw, fl, fric):
 
 
 def _contact_groups(model, contacts, device):
-    """Per contact type: (typ, contacts, parent joints, frame ids, force
-    row indices)."""
+    """Per contact type: (typ, contacts (a list), then as device index
+    tensors the contacts, their parent joints, their frame ids and their
+    force rows). Indexing with the lists would copy them to the card at
+    every call, and each copy synchronises."""
     out = []
     for typ in (POINT, SURFACE):
         cs = [c for c in range(contacts.n_contacts)
               if contacts.types[c] == typ]
         if cs:
             fids = [contacts.frame_ids[c] for c in cs]
-            out.append((typ, cs, [model.frame_parents[f] for f in fids],
-                        fids, torch.as_tensor(
-                            [[contacts.f_offsets[c] + j for j in range(typ)]
-                             for c in cs], device=device)))
+            out.append((typ, cs, rm._index(cs, device), rm._index(
+                [model.frame_parents[f] for f in fids], device),
+                rm._index(fids, device), torch.stack([
+                    torch.arange(typ, device=device)
+                    + contacts.f_offsets[c] for c in cs])))
     return out
 
 
@@ -336,25 +341,25 @@ def fused_stage_outputs(model, contacts: ContactModel, q, v, a, f_eff,
                                                     gravity_on)
     tau = _rnea_backward(model, PL_R, PL_p, VS, AS + GP, f_joint)
     res_c, g_c, dg_c = {}, {}, {}
-    for typ, cs, pars, fids, f_idx in _contact_groups(model, contacts,
-                                                      q.device):
+    for typ, cs, ci, pars, fids, f_idx in _contact_groups(model, contacts,
+                                                          q.device):
         fR, fp = model.frame_R[fids], model.frame_p[fids]
         vf = motion_transform_inv(fR, fp, VS[pars])
         af = motion_transform_inv(fR, fp, AS[pars])
         Rw = RS[pars] @ fR
         pw = rm._mv(RS[pars], fp) + PS[pars]
-        kv = contacts.kv[cs].unsqueeze(-1)
-        kp = contacts.kp[cs].unsqueeze(-1)
+        kv = contacts.kv[ci].unsqueeze(-1)
+        kp = contacts.kp[ci].unsqueeze(-1)
         if typ == POINT:
             a_cl = af[:, :3] + lie.cross3(vf[:, 3:], vf[:, :3])
-            res = a_cl + kv * vf[:, :3] + kp * (pw - p_ref[cs])
+            res = a_cl + kv * vf[:, :3] + kp * (pw - p_ref[ci])
         else:
             Rr = (torch.eye(3, dtype=q.dtype, device=q.device).expand(
-                Rw.shape) if R_ref is None else R_ref[cs])
+                Rw.shape) if R_ref is None else R_ref[ci])
             Rrt = Rr.transpose(-1, -2)
-            err6 = lie.se3_log(Rrt @ Rw, rm._mv(Rrt, pw - p_ref[cs]))
+            err6 = lie.se3_log(Rrt @ Rw, rm._mv(Rrt, pw - p_ref[ci]))
             res = af + kv * vf + kp * err6
-        gv, dg = _cone_rows(contacts, cs, typ, Rw, f_eff[f_idx], fric)
+        gv, dg = _cone_rows(contacts, ci, typ, Rw, f_eff[f_idx], fric)
         for n, c in enumerate(cs):
             res_c[c], g_c[c], dg_c[c] = res[n], gv[n], dg[n]
     order = range(contacts.n_contacts)
@@ -474,12 +479,12 @@ def fused_impact_outputs(model, contacts: ContactModel, q, dv, vpost,
     tau = _rnea_backward(model, PL_R, PL_p, VS0, AS, f_joint)
     VP = _velocity_forward(model, PL_R, PL_p, vpost)
     res_c, g_c, dg_c = {}, {}, {}
-    for typ, cs, pars, fids, f_idx in _contact_groups(model, contacts,
-                                                      q.device):
+    for typ, cs, ci, pars, fids, f_idx in _contact_groups(model, contacts,
+                                                          q.device):
         fR, fp = model.frame_R[fids], model.frame_p[fids]
         vf = motion_transform_inv(fR, fp, VP[pars])
         res = vf[:, :3] if typ == POINT else vf
-        gv, dg = _cone_rows(contacts, cs, typ, RS[pars] @ fR,
+        gv, dg = _cone_rows(contacts, ci, typ, RS[pars] @ fR,
                             lam_eff[f_idx], fric)
         for n, c in enumerate(cs):
             res_c[c], g_c[c], dg_c[c] = res[n], gv[n], dg[n]

@@ -232,19 +232,32 @@ def chain_levels(model: RobotModel):
                  for (d, jt), idxs in sorted(buckets.items()))
 
 
+_INDEX = {}
+
+
+def _index(idxs, device):
+    """The indices idxs as a device tensor, made once per device: indexing
+    with a Python list copies it to the card at every call, and the copy
+    synchronises the host with the card."""
+    key = (tuple(idxs), str(device))
+    if key not in _INDEX:
+        _INDEX[key] = torch.tensor(key[0], dtype=torch.long, device=device)
+    return _INDEX[key]
+
+
 def level_local_placements(model: RobotModel, jt, idxs, q):
     """Batched local placements (..., k, 3, 3), (..., k, 3) of one level."""
-    idx = list(idxs)
-    k = len(idx)
+    k = len(idxs)
     batch = q.shape[:-1]
     if jt == FREE:
-        qo = model.q_offs[idx[0]]
+        qo = model.q_offs[idxs[0]]
         Rq = lie.quat_to_rot(q[..., qo + 3:qo + 7])
-        Rl = (model.Xtree_R[idx[0]] @ Rq).unsqueeze(-3)
-        pl = (_mv(model.Xtree_R[idx[0]], q[..., qo:qo + 3])
-              + model.Xtree_p[idx[0]]).unsqueeze(-2)
+        Rl = (model.Xtree_R[idxs[0]] @ Rq).unsqueeze(-3)
+        pl = (_mv(model.Xtree_R[idxs[0]], q[..., qo:qo + 3])
+              + model.Xtree_p[idxs[0]]).unsqueeze(-2)
         return Rl, pl
-    qi = q[..., [model.q_offs[i] for i in idx]]
+    idx = _index(idxs, q.device)
+    qi = q[..., _index([model.q_offs[i] for i in idxs], q.device)]
     ax = model.axis[idx]
     if jt == REVOLUTE:
         Rj = lie.so3_exp(qi.unsqueeze(-1) * ax)

@@ -18,7 +18,7 @@ csrc/condense_stage.cuh) with a plain PyTorch version beside it:
 All four are bound by device-memory bytes on an H100 (see csrc/condense.cu
 for the count); each reads each input once and writes each output once,
 K1 and Kc a warp per stage, K2 a block of four warps per stage, K3 a
-block of 256 threads per stage.
+thread per 16-byte column chunk of a stage.
 
 Every tensor is batch-first (S, ...), S = B * N stages flattened, which is
 what the custom-vmap rule of the Pallas entry did. A wrapper (`k1`, `kc`,

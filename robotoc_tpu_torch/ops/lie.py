@@ -87,8 +87,8 @@ def quat_mul(a, b):
 
 
 def quat_conj(q):
-    return q * torch.tensor([-1.0, -1.0, -1.0, 1.0], dtype=q.dtype,
-                            device=q.device)
+    # no host-made constant: its copy to the card would synchronise
+    return torch.cat([-q[..., :3], q[..., 3:]], dim=-1)
 
 
 def quat_normalize(q):

@@ -16,12 +16,22 @@ either one scenario (Solution fields (S, ...), q_init (nq,)) or a fleet
 (fields (B, S, ...), q_init (B, nq)); the grid is shared by the fleet or
 carries the same leading B.
 
+`solve` is the Newton loop (one build per iteration, reused for the next
+direction; each scenario of a fleet frozen once it converges, fails or
+runs out of iterations) with the barrier path-following of the JAX
+package. `enable_line_search` takes the merit search (True or "merit") or
+the Fletcher-Leyffer filter ("filter") of line_search/line_search.py;
+each scenario's step is chosen on the device, with no host
+synchronisation per trial.
+
 Not ported yet, and refused with NotImplementedError rather than ignored:
-line search, the associative-scan Riccati and the Newton loop `solve`.
+the associative-scan Riccati and the KKT-residual line search ("kkt",
+which only the jump MPC uses).
 """
 from __future__ import annotations
 
 import dataclasses
+import time
 from typing import NamedTuple, Optional
 
 import numpy as np
@@ -35,6 +45,7 @@ from ..core.structs import LQRData
 from ..costs import base as cost_base
 from ..dynamics import switching_constraint as swc
 from ..dynamics.contact_dynamics import ty_solve
+from ..line_search import line_search as ls
 from ..models import robot as rm
 from ..ocp import contact_stage as stage
 from ..ocp import impact_stage as istage
@@ -42,6 +53,7 @@ from ..ops import chain as chn
 from ..ops import condense as cd
 from ..planner.contact_sequence import GridData
 from ..riccati import backward_sweep
+from .statistics import SolverStatistics
 
 
 @dataclasses.dataclass
@@ -73,10 +85,23 @@ class Solution:
 
 @dataclasses.dataclass(frozen=True)
 class SolverOptions:
+    max_iter: int = 100
+    kkt_tol: float = 1e-7
     barrier: float = 1e-3
+    """Initial barrier parameter mu_init."""
+    mu_min: float = 1e-3
+    """Minimum barrier parameter; the default equals `barrier`, i.e. no
+    path-following."""
+    kkt_tol_mu: float = 1e-7
+    """Perturbed-KKT tolerance that triggers a barrier decrease."""
+    mu_linear_decrease_factor: float = 0.2
+    mu_superlinear_decrease_power: float = 1.5
+    """mu' = max(mu_min, min(mu * linear_factor, mu ** superlinear_power))."""
     fraction_to_boundary_rule: float = 0.995
     parallel_riccati: bool = False
-    enable_line_search: bool = False
+    enable_line_search: object = False
+    """False, True or "merit" (merit backtracking), or "filter" (the
+    Fletcher-Leyffer filter)."""
     switching_constraints: bool = False
     use_kernels: bool = True
     """Condense and Riccati backward sweep through the hand-written CUDA
@@ -92,10 +117,16 @@ class OCPSolver:
                  T: float, N: int,
                  options: SolverOptions = SolverOptions(),
                  n_reserved_events: int = 0):
-        for flag in ("parallel_riccati", "enable_line_search"):
-            if getattr(options, flag):
-                raise NotImplementedError(f"SolverOptions.{flag} is not "
-                                          "ported yet")
+        if options.parallel_riccati:
+            raise NotImplementedError("SolverOptions.parallel_riccati is "
+                                      "not ported yet")
+        if options.enable_line_search == "kkt":
+            raise NotImplementedError('enable_line_search="kkt" is not '
+                                      "ported yet")
+        if options.enable_line_search not in (False, True, "merit",
+                                              "filter"):
+            raise ValueError("enable_line_search: False, True, 'merit' or "
+                             f"'filter', not {options.enable_line_search!r}")
         self.n_reserved_events = int(n_reserved_events)
         self.enable_sw = (bool(options.switching_constraints)
                           and self.n_reserved_events > 0)
@@ -120,15 +151,77 @@ class OCPSolver:
                                      self.options.barrier, grid, q, v,
                                      f_init)
 
+    def _kw(self):
+        o = self.options
+        return dict(use_kernels=o.use_kernels, n_imp=self.n_reserved_events,
+                    enable_sw=self.enable_sw, use_chain=self.use_chain,
+                    enable_ls=o.enable_line_search)
+
     def update(self, grid: GridData, q_init, v_init, sol: Solution,
                costs=None):
         """One Newton update: returns (sol, kkt, primal step, policy)."""
         o = self.options
         return _update(self.model, self.contacts, self.limits, o.barrier,
                        o.fraction_to_boundary_rule, costs or self.costs, sol,
-                       grid, q_init, v_init, use_kernels=o.use_kernels,
-                       n_imp=self.n_reserved_events, enable_sw=self.enable_sw,
-                       use_chain=self.use_chain)
+                       grid, q_init, v_init, **self._kw())
+
+    def solve(self, grid: GridData, q_init, v_init,
+              sol: Optional[Solution] = None, costs=None,
+              statistics: bool = False):
+        """Full Newton solve of one scenario or a fleet (then `sol` is
+        required). When options.mu_min < options.barrier, runs barrier
+        path-following (one scenario): solve the perturbed KKT system to
+        kkt_tol_mu at each mu, decrease mu (linear / superlinear),
+        re-initialise the PDIPM pairs at the new mu, and finish at mu_min
+        with kkt_tol. With the default mu_min == barrier this is one
+        fixed-barrier solve. Returns (sol, stats dict), and with
+        statistics=True (one scenario) also a SolverStatistics."""
+        if sol is None:
+            sol = self.init_solution(grid, q_init, v_init)
+        kw = dict(dtype=self.model.dtype, device=self.model.device)
+        q_init = torch.as_tensor(q_init, **kw)
+        v_init = torch.as_tensor(v_init, **kw)
+        costs = costs or self.costs
+        o = self.options
+        t0 = time.perf_counter()
+
+        def run(tol, mu, s):
+            return _solve(self.model, self.contacts, self.limits,
+                          o.max_iter, tol, mu, o.fraction_to_boundary_rule,
+                          costs, s, grid, q_init, v_init, **self._kw())
+
+        if o.mu_min >= o.barrier and not statistics:
+            return run(o.kkt_tol, o.barrier, sol)
+        if sol.q.dim() != 2:
+            raise ValueError("the barrier path and statistics=True solve "
+                             "one scenario")
+        stats = SolverStatistics()
+        mu = float(o.barrier)
+        total_iters = 0
+        while True:
+            last = mu <= o.mu_min * (1.0 + 1e-12)
+            tol = o.kkt_tol if last else max(o.kkt_tol_mu, o.kkt_tol)
+            sol, st = run(tol, mu, sol)
+            n_it = int(st["iterations"])
+            total_iters += n_it
+            stats.kkt_error.extend(
+                float(k) for k in st["kkt_history"][:n_it])
+            stats.primal_step_size.extend(
+                float(a) for a in st["step_size_history"][:n_it])
+            stats.barrier.append(mu)
+            if last or bool(st["numerical_failure"]):
+                break
+            mu = max(o.mu_min, min(mu * o.mu_linear_decrease_factor,
+                                   mu ** o.mu_superlinear_decrease_power))
+            sol = reinit_constraints(self.model, self.contacts, self.limits,
+                                     mu, grid, sol)
+        stats.convergence = bool(st["convergence"])
+        stats.iter = total_iters
+        stats.cpu_time = (time.perf_counter() - t0) * 1e3
+        st = dict(st, iterations=total_iters)
+        if statistics:
+            return sol, st, stats
+        return sol, st
 
     def kkt_error(self, grid: GridData, q_init, v_init, sol: Solution,
                   costs=None):
@@ -138,10 +231,6 @@ class OCPSolver:
                           use_kernels=o.use_kernels,
                           n_imp=self.n_reserved_events,
                           enable_sw=self.enable_sw, use_chain=self.use_chain)
-
-    def solve(self, *args, **kwargs):
-        raise NotImplementedError("the Newton loop `solve` is not ported "
-                                  "yet; call `update` repeatedly")
 
 
 # ---------------------------------------------------------------------------
@@ -186,8 +275,8 @@ def reinit_constraints(model, contacts, limits, barrier, grid: GridData,
     s_lim, z_lim = pdipm.init_slack_dual(e_lim, barrier, limits.mask)
     cone_mask = contacts.cone_mask(grid.contact_mask[:-1]) > 0
     f_mask = contacts.force_mask(grid.contact_mask[:-1])
-    g_cone = vmap(lambda qq, ff, fr: fc.residual_and_jac(
-        model, contacts, qq, ff, fr)[0])(
+    g_cone = vmap(lambda qq, ff, fr: fc.residual(model, contacts, qq, ff,
+                                                 fr))(
         sol.q[:-1], sol.f[:-1] * f_mask, grid.friction[:-1])
     s_cone, z_cone = pdipm.init_slack_dual(g_cone, barrier, cone_mask)
     return sol.replace(s_lim=s_lim, z_lim=z_lim, s_cone=s_cone,
@@ -525,11 +614,35 @@ def _switching_duals(sol, data, blocks, dx, policy, sw_aux, d):
     return d._replace(dxi=dxi, dbeta=dbeta, dmu=dmu)
 
 
+def _trial_fn(model, sol: Solution, d: Directions):
+    """alpha (R, B) -> the primal trial iterates sol (+) alpha d, leading
+    (R, B): what the line search evaluates (q, v, a, u, f, s_lim,
+    s_cone)."""
+    def trial(alpha):
+        R = alpha.shape[0]
+        ap = alpha[..., None, None]
+
+        def ex(x):
+            return x.expand((R,) + tuple(x.shape))
+
+        return sol.replace(
+            q=rm.integrate(model, ex(sol.q), ap * d.dq_all),
+            v=sol.v + ap * d.dv_all, a=sol.a + ap * _pad0(d.da),
+            u=sol.u + ap * _pad0(d.du), f=sol.f + ap * _pad0(d.df),
+            s_lim=sol.s_lim + ap * d.ds_lim,
+            s_cone=sol.s_cone + ap * d.ds_cone)
+    return trial
+
+
 def _direction_and_step(model, contacts, limits, barrier, ftb,
                         sol: Solution, grid: GridData, built,
-                        use_kernels=True, n_imp=0):
-    """Newton direction + fraction-to-boundary step from a build (fleet
-    inputs). Returns (sol, kkt (B,), a_p (B,), policy)."""
+                        use_kernels=True, n_imp=0, costs=(), q_init=None,
+                        v_init=None, enable_ls=False, filt=None, ls_it=0):
+    """Newton direction + globalised step from a build (fleet inputs).
+    Returns (sol, kkt (B,), a_p (B,), policy), and with
+    enable_ls == "filter" also the filters (B, MAX_FILTER, 2) augmented
+    with the accepted pairs (`filt`: the filters carried by the solve
+    loop, empty when None; `ls_it`: the round-robin slot, an int or (B,))."""
     data, blocks, dx0, kkt_sq, _, sw_aux = built
     dx, du, dlmd_all, policy = backward_sweep.solve(data, dx0,
                                                     use_kernels=use_kernels)
@@ -554,15 +667,40 @@ def _direction_and_step(model, contacts, limits, barrier, ftb,
     a_p, a_d = _step_sizes(limits, ftb, sol, d)
     a_p = torch.where(dir_ok, a_p, torch.zeros_like(a_p))
     a_d = torch.where(dir_ok, a_d, torch.zeros_like(a_d))
+    if enable_ls:
+        def eval_cv(trials):
+            return ls.eval_ocp(model, contacts, limits, barrier, costs,
+                               trials, grid, q_init, v_init)
+
+        trial = _trial_fn(model, sol, d)
+    if enable_ls is True or enable_ls == "merit":
+        # the l1 weight of each scenario from its own duals
+        rho = 1.0 + sum(torch.amax(torch.abs(x), dim=(1, 2))
+                        for x in (sol.lmd, sol.gmm, sol.beta, sol.mu))
+
+        def merit(trials):
+            c, v = eval_cv(trials)
+            return c + rho * v
+
+        a_p = ls.search(trial, merit, a_p)
+    if enable_ls == "filter":
+        if filt is None:
+            filt = ls.empty_filter(sol.q.dtype, sol.q.device,
+                                   (sol.q.shape[0],))
+        a_p, c_acc, v_acc = ls.filter_search(trial, eval_cv, a_p, filt)
+        filt = ls.filter_augment(filt, ls_it, c_acc, v_acc)
     new = _integrate_solution(model, sol, d, a_p, a_d)
+    if enable_ls == "filter":
+        return new, torch.sqrt(kkt_sq), a_p, policy, filt
     return new, torch.sqrt(kkt_sq), a_p, policy
 
 
 def _update(model, contacts, limits, barrier, ftb, costs, sol: Solution,
             grid: GridData, q_init, v_init, use_kernels=True, n_imp=0,
-            enable_sw=False, use_chain=None):
+            enable_sw=False, use_chain=None, enable_ls=False):
     """One Newton update of one scenario or a fleet (see module doc).
-    use_chain None follows use_kernels."""
+    use_chain None follows use_kernels. With the filter search, each
+    update starts from an empty filter, as the JAX package's does."""
     if use_chain is None:
         use_chain = use_kernels
     sol_b, grid_b, q_b, v_b, batched = _fleet(sol, grid, q_init, v_init)
@@ -571,11 +709,83 @@ def _update(model, contacts, limits, barrier, ftb, costs, sol: Solution,
                    enable_sw=enable_sw, use_chain=use_chain)
     new, kkt, a_p, policy = _direction_and_step(
         model, contacts, limits, barrier, ftb, sol_b, grid_b, built,
-        use_kernels=use_kernels, n_imp=n_imp)
+        use_kernels=use_kernels, n_imp=n_imp, costs=costs, q_init=q_b,
+        v_init=v_b, enable_ls=enable_ls)[:4]
     if not batched:
         new = new.map(lambda x: x[0])
         kkt, a_p = kkt[0], a_p[0]
     return new, kkt, a_p, policy
+
+
+def _where(ok, new: Solution, old: Solution) -> Solution:
+    """Per scenario (ok (B,)): new where ok, else old."""
+    return Solution(**{
+        f.name: torch.where(ok.reshape((-1,) + (1,) * (getattr(
+            new, f.name).dim() - 1)), getattr(new, f.name),
+            getattr(old, f.name)) for f in dataclasses.fields(new)})
+
+
+def _solve(model, contacts, limits, max_iter, kkt_tol, barrier, ftb, costs,
+           sol, grid, q_init, v_init, use_kernels=True, n_imp=0,
+           enable_sw=False, use_chain=None, enable_ls=False):
+    """Newton loop of one scenario or a fleet, with ONE build per
+    iteration: the build evaluated for the convergence check is reused for
+    the next direction. Each scenario runs while its own (it < max_iter)
+    & (kkt > kkt_tol) & ok holds and is frozen after, as the JAX
+    package's vmapped `while_loop` freezes it; a non-finite KKT keeps the
+    last good iterate and ends that scenario with convergence False. The
+    filter of the filter search is carried per scenario, its slot the
+    scenario's iteration count. One host synchronisation per iteration
+    (the loop's exit test). Returns (sol, stats dict)."""
+    if use_chain is None:
+        use_chain = use_kernels
+    sol_b, grid_b, q_b, v_b, batched = _fleet(sol, grid, q_init, v_init)
+    B, dtype, dev = sol_b.q.shape[0], sol_b.q.dtype, sol_b.q.device
+
+    def do_build(s):
+        return _build(model, contacts, limits, barrier, costs, s, grid_b,
+                      q_b, v_b, use_kernels=use_kernels, n_imp=n_imp,
+                      enable_sw=enable_sw, use_chain=use_chain)
+
+    built = do_build(sol_b)
+    kkt = torch.sqrt(built[3])
+    ok = torch.isfinite(kkt)
+    it = torch.zeros(B, dtype=torch.long, device=dev)
+    alpha = torch.ones(B, dtype=dtype, device=dev)
+    filt = ls.empty_filter(dtype, dev, (B,))
+    kkt_h = torch.full((B, max_iter), float("nan"), dtype=dtype, device=dev)
+    alpha_h = kkt_h.clone()
+    rows = torch.arange(B, device=dev)
+    for _ in range(max_iter):
+        run = (it < max_iter) & (kkt > kkt_tol) & ok
+        if not bool(run.any()):
+            break
+        out = _direction_and_step(
+            model, contacts, limits, barrier, ftb, sol_b, grid_b, built,
+            use_kernels=use_kernels, n_imp=n_imp, costs=costs, q_init=q_b,
+            v_init=v_b, enable_ls=enable_ls, filt=filt, ls_it=it)
+        new, a_p = out[0], out[2]
+        if enable_ls == "filter":
+            filt = torch.where(run[:, None, None], out[4], filt)
+        built = do_build(new)
+        kkt_new = torch.sqrt(built[3])
+        ok_new = torch.isfinite(kkt_new)
+        # on numerical failure keep the last good iterate
+        sol_b = _where(run & ok_new, new, sol_b)
+        kkt = torch.where(run, torch.where(ok_new, kkt_new, kkt), kkt)
+        ok = torch.where(run, ok_new, ok)
+        alpha = torch.where(run, a_p, alpha)
+        slot = torch.clamp(it, max=max_iter - 1)
+        kkt_h[rows, slot] = torch.where(run, kkt, kkt_h[rows, slot])
+        alpha_h[rows, slot] = torch.where(run, alpha, alpha_h[rows, slot])
+        it = it + run.to(it.dtype)
+    st = dict(iterations=it, kkt_error=kkt, last_step_size=alpha,
+              convergence=(kkt <= kkt_tol) & ok, numerical_failure=~ok,
+              kkt_history=kkt_h, step_size_history=alpha_h)
+    if not batched:
+        sol_b = sol_b.map(lambda x: x[0])
+        st = {k: v[0] for k, v in st.items()}
+    return sol_b, st
 
 
 def _kkt_error(model, contacts, limits, barrier, costs, sol, grid, q_init,

@@ -9,7 +9,7 @@ that machine need not have, hence --noconftest):
 Each wrapper is held against its plain version on the same CUDA tensors
 in float64 (1e-10 relative to each output's max-abs; K1, K2 and Kc at
 the fleets' stage counts on seeded inputs and K6 also in float32, 1e-4,
-K1's and K2's outputs filled with NaN first; K6 also on the full
+K1's and K2's outputs filled with NaN first; K3 the same way; K6 also on the full
 iCub's nv 35 tree), the wrappers refuse
 inputs their kernels do not take (K6 a chain layout past its workspace),
 and one Newton update of a small fleet
@@ -283,6 +283,37 @@ def test_k1_k2_match_plain_on_stage_counts(dev, name, fleet, dtype, tol):
         wrapper.launches = 0
         _close(wrapper(*args), want, tol)
         assert wrapper.launches == 1
+
+
+def _k3_args(rng, S, dtype, dev):
+    shapes = ((30, 48), (30,), (48,), (18, 18), (18, 18), (18,), (18,), (),
+              (36,), (36,))
+    return [torch.as_tensor(rng.standard_normal((S,) + sh), dtype=dtype,
+                            device=dev) for sh in shapes]
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float64, 1e-10),
+                                       (torch.float32, 1e-4)])
+def test_k3_matches_plain_on_stage_counts(dev, dtype, tol):
+    """K3 (a thread per 16-byte column chunk of a stage) on seeded inputs:
+    1, 3 and 7 stages (a block's last stages part full) and the fleets'
+    stage counts (standing 128 x 20, trot 128 x 24, walk 128 x 28); the
+    library's outputs filled with NaN first, so that an entry the kernel
+    does not write shows; the wrapper counts its launch."""
+    shapes = ((36, 36), (36, 12), (36,), (36,), (12,))
+    rng = np.random.default_rng(3)
+    for S in (1, 3, 7, 128 * 20, 128 * 24, 128 * 28):
+        args = _k3_args(rng, S, dtype, dev)
+        want = cd.k3_plain(*args)
+        outs = [torch.full((S,) + sh, float("nan"), dtype=dtype, device=dev)
+                for sh in shapes]
+        cd._launch("k3", cd._lib().rtt_condense_k3, (18, 12, 12), args,
+                   outs)
+        torch.cuda.synchronize()
+        _close(outs, want, tol)
+        cd.k3.launches = 0
+        _close(cd.k3(*args), want, tol)
+        assert cd.k3.launches == 1
 
 
 @pytest.mark.parametrize("with_cost", [False, True])

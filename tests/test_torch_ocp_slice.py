@@ -152,11 +152,10 @@ def test_single_scenario_equals_fleet_member():
 def test_unported_options_raise():
     p = problems.anymal_standing(N=N, device="cpu")
     args = (p.model, p.contacts, (p.cost,), p.limits, p.T, p.N)
-    for flag in ("parallel_riccati", "enable_line_search"):
+    for opts in (dict(parallel_riccati=True),
+                 dict(enable_line_search="kkt")):
         with pytest.raises(NotImplementedError):
-            TOS.OCPSolver(*args, options=TOS.SolverOptions(**{flag: True}))
-    with pytest.raises(NotImplementedError):
-        TOS.OCPSolver(*args).solve(p.grid, p.q0, p.v0)
+            TOS.OCPSolver(*args, options=TOS.SolverOptions(**opts))
 
 
 def test_golden_anymal_trace_through_the_port():

@@ -8,8 +8,8 @@ the port's plain PyTorch versions in f64: Gauss-Jordan and the products
 (the tiled ones with 16-byte row runs on the card, gemm_rows and
 tile_tn) at 1e-12 on well-conditioned inputs, the stage bodies of K1, Kc,
 K2, K3 on stages of the ANYmal contact OCP and K5 on seeded LQR data at
-1e-12 relative to each output's largest magnitude, K1's, Kc's and K2's
-outputs filled with NaN first, so that an entry a body does not write
+1e-12 relative to each output's largest magnitude, K1's, Kc's, K2's and
+K3's outputs filled with NaN first, so that an entry a body does not write
 shows. Skipped only where g++ is absent."""
 import ctypes
 import shutil
@@ -248,8 +248,8 @@ def test_k3_stage(lib, stage_batch):
     ins = [G.contiguous(), c0.contiguous(), gtil] + [
         x[n] for n in ("Aqq", "Aqv", "xres_q", "Fv_res", "sA", "lam2",
                        "lmdgmm")]
-    outs = [_empty(S, NX, NX), _empty(S, NX, NU), _empty(S, NX),
-            _empty(S, NX), _empty(S, NU)]
+    outs = [_nans(S, NX, NX), _nans(S, NX, NU), _nans(S, NX),
+            _nans(S, NX), _nans(S, NU)]
     assert lib.rtt_host_k3(S, *[_p(t) for t in ins + outs]) == 0
     for name, got, want in zip(("A", "Bm", "xres", "lx", "lu"), outs,
                                cd.k3_plain(*ins)):
