@@ -72,7 +72,19 @@ Phases, each of which raises (and so exits non-zero) on failure:
      on the B = 128 standing fleet in float32 (4 iterations: finite KKT,
      launches per build); printed, the walk fleet's KKT after one MPC step
      with the merit search;
-  8. print the kernels' JSON line, the card line and the final status line.
+  8. "unconstr": the unconstrained family on the iiwa14 (fixed base, no
+     contacts, no kernel on its path: the six kernels' counts stay 0):
+     UnconstrOCPSolver.solve reproduces tests/golden/iiwa14_config_ocp.npz
+     (N 60, float64: KKT < 1e-7 in < 30 iterations, 1e-6); a B = 128
+     float64 fleet with perturbed initial configurations, every scenario
+     below 1e-7, two sampled scenarios equal to their own solves (1e-10),
+     ms per iteration, device ms and idle share printed; the fleet in
+     float32 (finite KKT gated, the rest printed); the filter search to
+     KKT < 1e-7; UnconstrParNMPCSolver on tests/test_parnmpc.py's problem
+     (KKT < 1e-7 in < 60 iterations, agreement with the Riccati solver at
+     that test's tolerances, the filter search to 1e-6 without a
+     numerical failure) and a B = 128 fleet, printed;
+  9. print the kernels' JSON line, the card line and the final status line.
 The phase "readings" (not a default phase) prints the trot gate's readings
 on three fleet seeds and two iterates with the planted faults' on each,
 and at the later iterate where the float64 difference off the unit
@@ -105,8 +117,11 @@ from robotoc_tpu_torch.models import contacts as ct
 from robotoc_tpu_torch.models import robot as rm
 from robotoc_tpu_torch.ops import chain as chn
 from robotoc_tpu_torch.ops import condense as cd
+from robotoc_tpu_torch.parnmpc import solver as PN
 from robotoc_tpu_torch.riccati import backward_sweep as bs
+from robotoc_tpu_torch.riccati import lqr
 from robotoc_tpu_torch.solver import ocp_solver as OS
+from robotoc_tpu_torch.solver import unconstr_ocp_solver as US
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 GOLDEN = os.path.join(ROOT, "tests", "golden", "anymal_standing_ocp.npz")
@@ -117,7 +132,7 @@ PEAK_FLOPS = {torch.float32: 67e12, torch.float64: 34e12}
 # kernel vs plain version, relative to each output's largest magnitude
 TOL = {torch.float64: 1e-10, torch.float32: 1e-4}
 ALL_PHASES = ("build", "kernels", "slice", "trot", "golden", "walk",
-              "solve")
+              "solve", "unconstr")
 # the trot's float32 gate: each field's drift from the float64 step at most
 # TROT_K times the largest drift among the plain float32 step and the plain
 # steps from iterates jittered with these seeds: the largest round factor
@@ -1567,6 +1582,233 @@ def phase_solve(dev):
     return out
 
 
+IIWA_GOLDEN = os.path.join(ROOT, "tests", "golden", "iiwa14_config_ocp.npz")
+UNCONSTR_FIELDS = ("q", "v", "a", "u", "lmd", "gmm", "beta", "slack", "dual")
+
+
+def _arm_timing(tag, p, q0s, v0s, sol):
+    """ms per solve iteration of the fleet (one `update` is one iteration's
+    work: a build and a Newton step; host clock, synchronised, median of
+    5), the same by part, and from one profiler trace of it the device ms
+    and the device's idle share."""
+    def one():
+        return p.solver.update(q0s, v0s, sol)
+
+    ms = host_ms(one)
+    args = p.solver._args()
+    sb, qb, vb, _ = US._fleet(sol, q0s, v0s)
+    if isinstance(p.solver, PN.UnconstrParNMPCSolver):
+        terms = PN._stage_terms(*args, 0.0, sb, qb, vb)
+        parts = {"stage_terms": host_ms(lambda: PN._stage_terms(
+            *args, 0.0, sb, qb, vb)),
+            "inverse_corrections_step": host_ms(lambda: PN._update(
+                *args, 0.995, 0.0, False, 0.75, 0.05, sb, qb, vb,
+                terms=terms))}
+    else:
+        built = US._build_kkt(*args, 0.0, sb, qb, vb)
+        parts = {"build": host_ms(lambda: US._build_kkt(*args, 0.0, sb, qb,
+                                                        vb)),
+                 "riccati": host_ms(lambda: lqr.solve(built[0], built[3])),
+                 "direction_step": host_ms(lambda: US._direction_step(
+                     p.model, p.limits, 1e-3, 0.995, built, sb))}
+    dev_ms, top = device_time(one)
+    idle = None if dev_ms is None else 1.0 - dev_ms / ms
+    print(f"  {tag}: {ms:.2f} ms per solve iteration (host clock), by part "
+          + ", ".join(f"{k} {v:.2f}" for k, v in parts.items())
+          + f"; device {dev_ms} ms (profiler), idle share {idle}; top "
+          f"kernels {top}; {card_line()}")
+    return dict(ms_per_iteration=ms, ms_by_part=parts,
+                device_ms_per_iteration=dev_ms, device_idle_share=idle)
+
+
+def _same(tag, got, want, tol):
+    """Each field of `got` within tol of `want`'s max-abs (at least one)."""
+    worst = 0.0
+    for name in dataclasses.fields(want):
+        w = getattr(want, name.name)
+        g = getattr(got, name.name)
+        scale = max(1.0, float(w.abs().max()))
+        err = float((g.to(w.dtype) - w).abs().max()) / scale
+        worst = max(worst, err)
+        check(err <= tol, f"{tag}: {name.name} off by {err:.3e} of its "
+              f"max-abs (> {tol:g})")
+    return worst
+
+
+def phase_unconstr(dev):
+    """The unconstrained family on the iiwa14 (fixed base, no contacts),
+    through UnconstrOCPSolver.solve and UnconstrParNMPCSolver.solve: (a)
+    the golden trace, N 60, T 3, float64, one scenario: converged, KKT <
+    1e-7 in < 30 iterations, q, v, a, u within 1e-6 of
+    tests/golden/iiwa14_config_ocp.npz; (b) a B = 128 float64 fleet with
+    q0 moved by 0.05 N(0, 1): every scenario below 1e-7, two sampled
+    scenarios equal to their own solves (1e-10 of each field's max-abs),
+    and printed iterations, ms per iteration, device ms and idle share;
+    the same fleet in float32 (as many iterations as the float64 fleet's
+    most): finite KKT gated, its KKT, ms per iteration and agreement with
+    the float64 fleet printed; (c) the filter search on
+    tests/test_unconstr_solver.py's case (N 20, T 3): converged below
+    1e-7; (d) ParNMPC on tests/test_parnmpc.py's problem (N 20, T 1): KKT
+    < 1e-7 in < 60 iterations, agreement with the Riccati solver at that
+    test's tolerances, the filter search's case to KKT < 1e-6 without a
+    numerical failure, and a B = 128 fleet printed with ms per iteration.
+    The family reaches none of the six kernels: their counts stay 0."""
+    f32, f64 = torch.float32, torch.float64
+    card = card_line()
+    out = {}
+    seconds = {}
+    clock = [time.perf_counter()]
+
+    def lap(part):
+        now = time.perf_counter()
+        seconds[part] = now - clock[0]
+        clock[0] = now
+
+    reset_counts()
+    # (a) the golden trace
+    ref = np.load(IIWA_GOLDEN)
+    p = problems.iiwa14_config(dtype=f64, device=dev)
+    sol, st = p.solver.solve(p.q0, p.v0)
+    its, kkt = int(st["iterations"]), float(st["kkt_error"])
+    check(bool(st["convergence"]) and kkt < 1e-7 and its < 30,
+          f"unconstr golden: convergence {bool(st['convergence'])}, kkt "
+          f"{kkt:.3e}, {its} iterations")
+    errs = {}
+    for name in ("q", "v", "a", "u"):
+        got = getattr(sol, name).cpu().numpy()
+        errs[name] = float(np.abs(got - ref[name]).max())
+        check(np.allclose(got, ref[name], rtol=1e-6, atol=1e-6),
+              f"unconstr golden: {name} off by {errs[name]:.3e}")
+    out["golden"] = dict(iterations=its, kkt=kkt,
+                         max_abs_err=max(errs.values()))
+    lap("golden")
+    print(f"  unconstr golden (N 60, float64): kkt {kkt:.3e} in {its} "
+          f"iterations; max |x - golden| {max(errs.values()):.3e} "
+          f"(tolerance 1e-6); {card}")
+    # (b) the fleet, float64 then float32
+    q0s, v0s = problems.iiwa14_fleet(p, B, seed=0)
+    sol_b, st_b = p.solver.solve(q0s, v0s)
+    kkts = st_b["kkt_error"]
+    check(bool((kkts < 1e-7).all()), f"unconstr fleet: KKT max "
+          f"{float(kkts.max()):.3e} >= 1e-7")
+    its_b = st_b["iterations"]
+    worst = 0.0
+    for b in (0, B - 1):
+        sol_1, st_1 = p.solver.solve(q0s[b], v0s[b])
+        check(int(st_1["iterations"]) == int(its_b[b]),
+              f"unconstr fleet scenario {b}: {int(its_b[b])} iterations, "
+              f"alone {int(st_1['iterations'])}")
+        worst = max(worst, _same(f"unconstr fleet scenario {b}",
+                                 sol_b.map(lambda x: x[b]), sol_1, 1e-10))
+    lap("fleet float64 with two single solves")
+    timing = _arm_timing("unconstr fleet float64", p, q0s, v0s, sol_b)
+    lap("fleet float64 timing")
+    out["fleet_f64"] = dict(B=B, N=p.N, iterations_max=int(its_b.max()),
+                            iterations_min=int(its_b.min()),
+                            kkt_max=float(kkts.max()),
+                            sampled_vs_single=worst, **timing)
+    print(f"  unconstr fleet (B={B}, N 60, float64): KKT max "
+          f"{float(kkts.max()):.3e}, iterations {int(its_b.min())}-"
+          f"{int(its_b.max())}; scenarios 0 and {B - 1} vs their own "
+          f"solves {worst:.3e} of max-abs (tolerance 1e-10); {card}")
+    p32 = problems.iiwa14_config(dtype=f32, device=dev,
+                                 options=US.SolverOptions(
+                                     max_iter=int(its_b.max())))
+    q32, v32 = q0s.to(f32), v0s.to(f32)
+    sol_32, st_32 = p32.solver.solve(q32, v32)
+    k32 = st_32["kkt_error"]
+    check(bool(torch.isfinite(k32).all()), "unconstr fleet float32: KKT "
+          "not finite")
+    agree = max(float((getattr(sol_32, n).double() - getattr(sol_b, n))
+                      .abs().max()) / max(1.0, float(getattr(sol_b, n)
+                                                     .abs().max()))
+                for n in UNCONSTR_FIELDS)
+    timing32 = _arm_timing("unconstr fleet float32", p32, q32, v32, sol_32)
+    out["fleet_f32"] = dict(iterations=int(st_32["iterations"].max()),
+                            kkt_max=float(k32.max()),
+                            kkt_median=float(k32.median()),
+                            vs_f64=agree, **timing32)
+    print(f"  unconstr fleet float32: KKT max {float(k32.max()):.3e}, "
+          f"median {float(k32.median()):.3e} after "
+          f"{int(st_32['iterations'].max())} iterations; largest field "
+          f"difference from the float64 fleet {agree:.3e} of max-abs "
+          f"(printed, not gated); {card}")
+    lap("fleet float32 with timing")
+    # (c) the filter search
+    pls = problems.iiwa14_config(N=20, T=3.0, dtype=f64, device=dev,
+                                 options=US.SolverOptions(
+                                     enable_line_search=True))
+    _, st_ls = pls.solver.solve(pls.q0, pls.v0)
+    check(bool(st_ls["convergence"]) and float(st_ls["kkt_error"]) < 1e-7,
+          f"unconstr filter search: kkt {float(st_ls['kkt_error']):.3e}")
+    out["filter"] = dict(iterations=int(st_ls["iterations"]),
+                         kkt=float(st_ls["kkt_error"]))
+    print(f"  unconstr filter search (N 20, T 3): kkt "
+          f"{float(st_ls['kkt_error']):.3e} in {int(st_ls['iterations'])} "
+          f"iterations; {card}")
+    lap("filter search")
+    # (d) ParNMPC
+    pp = problems.iiwa14_config(N=20, T=1.0, dtype=f64, device=dev,
+                                parnmpc=True)
+    sol_p, st_p = pp.solver.solve(pp.q0, pp.v0)
+    its_p, kkt_p = int(st_p["iterations"]), float(st_p["kkt_error"])
+    check(kkt_p < 1e-7 and its_p < 60 and not bool(
+        st_p["numerical_failure"]), f"parnmpc: kkt {kkt_p:.3e} in {its_p} "
+          "iterations")
+    pr = problems.iiwa14_config(N=20, T=1.0, dtype=f64, device=dev)
+    sol_r, st_r = pr.solver.solve(pr.q0, pr.v0)
+    check(bool(st_r["convergence"]), "parnmpc: the Riccati solve did not "
+          "converge")
+    dt = 1.0 / 20
+    gaps = {"q": (sol_p.q - sol_r.q[1:], 5.0 * dt),
+            "v[3:]": (sol_p.v[3:] - sol_r.v[4:], 5.0 * dt),
+            "q[-1]": (sol_p.q[-1] - sol_r.q[-1], 2.0 * dt)}
+    for name, (d, tol) in gaps.items():
+        check(float(d.abs().max()) <= tol, f"parnmpc vs Riccati: {name} "
+              f"off by {float(d.abs().max()):.3e} > {tol:g}")
+    pls_p = problems.iiwa14_config(
+        N=20, T=1.0, dtype=f64, device=dev, parnmpc=True,
+        options=PN.SolverOptions(enable_line_search=True, max_iter=60,
+                                 kkt_tol=1e-6))
+    _, st_pl = pls_p.solver.solve(pls_p.q0, pls_p.v0)
+    check(float(st_pl["kkt_error"]) < 1e-6 and not bool(
+        st_pl["numerical_failure"]), "parnmpc filter search: kkt "
+          f"{float(st_pl['kkt_error']):.3e}, failure "
+          f"{bool(st_pl['numerical_failure'])}")
+    lap("parnmpc, Riccati and filter search, one scenario each")
+    q0p, v0p = problems.iiwa14_fleet(pp, B, seed=0)
+    sol_pb, st_pb = pp.solver.solve(q0p, v0p)
+    kpb = st_pb["kkt_error"]
+    check(bool(torch.isfinite(kpb).all()), "parnmpc fleet: KKT not finite")
+    tp = _arm_timing("parnmpc fleet float64", pp, q0p, v0p, sol_pb)
+    out["parnmpc"] = dict(
+        iterations=its_p, kkt=kkt_p,
+        vs_riccati={k: float(d.abs().max()) for k, (d, _) in gaps.items()},
+        filter_iterations=int(st_pl["iterations"]),
+        filter_kkt=float(st_pl["kkt_error"]),
+        fleet=dict(B=B, N=pp.N, kkt_max=float(kpb.max()),
+                   iterations_max=int(st_pb["iterations"].max()),
+                   failures=int(st_pb["numerical_failure"].sum()), **tp))
+    print(f"  parnmpc (N 20, T 1, float64): kkt {kkt_p:.3e} in {its_p} "
+          f"iterations; vs the Riccati solver "
+          + ", ".join(f"{k} {float(d.abs().max()):.3e}"
+                      for k, (d, _) in gaps.items())
+          + f"; filter search kkt {float(st_pl['kkt_error']):.3e} in "
+          f"{int(st_pl['iterations'])}; fleet B={B} KKT max "
+          f"{float(kpb.max()):.3e}, iterations "
+          f"{int(st_pb['iterations'].max())}; {card}")
+    lap("parnmpc fleet with timing")
+    out["seconds"] = seconds
+    launches = read_counts()
+    check(all(v == 0 for v in launches.values()),
+          f"unconstr: a kernel launched on the unconstrained family: "
+          f"{launches}")
+    out["kernel_launches"] = launches
+    out["card"] = card
+    print("unconstr: " + json.dumps(out))
+    return out
+
+
 def _summary(out):
     """Each kernel's device time (ms) and ms per MPC step from one run's
     output, and the kernels phase's kernel-vs-plain max abs errors
@@ -1667,6 +1909,8 @@ def main(phases=ALL_PHASES):
              "biped standing OCP (N 4, one scenario, float64): 12 updates")
     if "solve" in phases:
         phase_solve(dev)
+    if "unconstr" in phases:
+        phase_unconstr(dev)
     print(f"total {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": list(recs.values())}))
     print(card)

@@ -25,8 +25,10 @@ from .device import resolve
 from .mpc.refs import StepBaseRotRef, StepCoMRef, StepSwingFootRef
 from .models.contacts import ContactModel
 from .models.robot import RobotModel
+from .parnmpc.solver import ParNMPCSolution
 from .planner.contact_sequence import GridData
 from .solver.ocp_solver import Solution
+from .solver.unconstr_ocp_solver import UnconstrSolution
 
 
 def _tensor(x, dtype, device):
@@ -103,6 +105,16 @@ def grid_data(fields: dict, dtype=torch.float64, device=None) -> GridData:
 
 def solution(fields: dict, dtype=torch.float64, device=None) -> Solution:
     return _build(Solution, fields, dtype, device)
+
+
+def unconstr_solution(fields: dict, dtype=torch.float64,
+                      device=None) -> UnconstrSolution:
+    return _build(UnconstrSolution, fields, dtype, device)
+
+
+def parnmpc_solution(fields: dict, dtype=torch.float64,
+                     device=None) -> ParNMPCSolution:
+    return _build(ParNMPCSolution, fields, dtype, device)
 
 
 def lqr_data(fields: dict, dtype=torch.float64, device=None) -> LQRData:

@@ -10,6 +10,17 @@ import torch
 
 
 @dataclasses.dataclass
+class PerformanceIndex:
+    """Five numbers of solver health, one each per scenario (reference
+    core/performance_index.hpp:13)."""
+    cost: torch.Tensor
+    cost_barrier: torch.Tensor
+    primal_feasibility: torch.Tensor
+    dual_feasibility: torch.Tensor
+    kkt_error: torch.Tensor      # sum of squared KKT residuals
+
+
+@dataclasses.dataclass
 class LQRData:
     """Condensed time-varying LQR subproblem over the horizon."""
     A: torch.Tensor       # (..., N, nx, nx) state transition

@@ -19,6 +19,11 @@ tools/bench_icub_walk.py): surface contacts with 17-row wrench cones,
 impact slots, switching constraints and the gait cost stack;
 `walk_warm_start` warms its iterate the way the MPC runs (standing
 `init`, then closed-loop updates to mid-gait).
+
+`iiwa14_config` builds the KUKA iiwa14 configuration-space OCP that
+tests/golden/iiwa14_config_ocp.npz pins (fixed base, no contacts) with
+the unconstrained Riccati solver or the ParNMPC solver; `iiwa14_fleet`
+moves its initial configuration by seeded noise for B scenarios.
 """
 from __future__ import annotations
 
@@ -35,7 +40,9 @@ from .models import robot as rm
 from .models.contacts import SURFACE, ContactModel, make_contacts
 from .planner.contact_sequence import (ContactSchedule, GridData,
                                        discretize)
+from .parnmpc import solver as PN
 from .solver import ocp_solver as OS
+from .solver import unconstr_ocp_solver as US
 
 FEET = ("LF_FOOT", "LH_FOOT", "RF_FOOT", "RH_FOOT")
 Q_STAND = (0, 0, 0.4792, 0, 0, 0, 1, -0.1, 0.7, -1.0, -0.1, -0.7, 1.0, 0.1,
@@ -114,6 +121,60 @@ def anymal_trot(N: int = 20, T: float = 0.5, dtype=torch.float64,
                           options=options, n_reserved_events=mpc.n_reserved)
     return GaitProblem(model=m, mpc=mpc, solver=solver, grid=grid,
                        costs=costs, q0=q0, v0=v0, T=T, N=N)
+
+
+@dataclasses.dataclass
+class ArmProblem:
+    model: rm.RobotModel
+    cost: ConfigurationSpaceCost
+    limits: JointLimits
+    solver: object     # UnconstrOCPSolver or UnconstrParNMPCSolver
+    q0: torch.Tensor
+    v0: torch.Tensor
+    T: float
+    N: int
+
+
+IIWA_Q_REF = (0, np.pi / 2, 0, np.pi / 2, 0, np.pi / 2, 0)
+IIWA_Q0 = (np.pi / 2, 0, np.pi / 2, 0, np.pi / 2, 0, np.pi / 2)
+
+
+def iiwa14_config(N: int = 60, T: float = 3.0, dtype=torch.float64,
+                  device=None, options=None,
+                  parnmpc: bool = False) -> ArmProblem:
+    """The iiwa14 configuration-space OCP of the golden trace
+    (tests/golden/make_golden.py): q driven from q0 to q_ref with q
+    weight 10, v and a weights 0.01, no u weight, terminal weights 10 and
+    0.01; torques within 50, velocities within pi/2; starting at rest.
+    The solver is UnconstrOCPSolver, or UnconstrParNMPCSolver with
+    parnmpc=True, with `options` of that solver (its defaults when
+    None)."""
+    m = load_robot("iiwa14", dtype=dtype, device=device)
+    kw = dict(dtype=dtype, device=m.device)
+    cost = make_config_cost(m, q_ref=torch.tensor(IIWA_Q_REF, **kw),
+                            q_weight=10, v_weight=0.01, a_weight=0.01,
+                            u_weight=0.0, q_weight_terminal=10,
+                            v_weight_terminal=0.01)
+    lim = make_joint_limits(m, u_limit=torch.full((7,), 50.0, **kw),
+                            v_limit=torch.full((7,), np.pi / 2, **kw))
+    mod = PN if parnmpc else US
+    cls = PN.UnconstrParNMPCSolver if parnmpc else US.UnconstrOCPSolver
+    solver = cls(m, cost, lim, T=T, N=N,
+                 options=options if options is not None
+                 else mod.SolverOptions())
+    return ArmProblem(model=m, cost=cost, limits=lim, solver=solver,
+                      q0=torch.tensor(IIWA_Q0, **kw),
+                      v0=torch.zeros(7, **kw), T=T, N=N)
+
+
+def iiwa14_fleet(p: ArmProblem, B: int, seed: int = 0,
+                 scale: float = 0.05):
+    """(q0s (B, 7), v0s (B, 7)): the problem's initial configuration moved
+    by scale * N(0, 1) (numpy seed), at rest."""
+    rng = np.random.default_rng(seed)
+    dq = torch.as_tensor(scale * rng.standard_normal((B, 7)),
+                         dtype=p.model.dtype, device=p.model.device)
+    return p.q0 + dq, p.v0.expand(B, 7).contiguous()
 
 
 def icub_walk_q0(model) -> np.ndarray:

@@ -717,9 +717,10 @@ def _update(model, contacts, limits, barrier, ftb, costs, sol: Solution,
     return new, kkt, a_p, policy
 
 
-def _where(ok, new: Solution, old: Solution) -> Solution:
-    """Per scenario (ok (B,)): new where ok, else old."""
-    return Solution(**{
+def _where(ok, new, old):
+    """Per scenario (ok (B,)): new where ok, else old (two iterates of one
+    dataclass: a Solution, or an iterate of the unconstrained solvers)."""
+    return type(new)(**{
         f.name: torch.where(ok.reshape((-1,) + (1,) * (getattr(
             new, f.name).dim() - 1)), getattr(new, f.name),
             getattr(old, f.name)) for f in dataclasses.fields(new)})

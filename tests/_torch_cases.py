@@ -16,6 +16,15 @@ import jax.numpy as jnp
 
 from robotoc_tpu_torch import convert
 
+# One intra-op thread: the port's tests run many tiny products batched
+# over a fleet dim (a B = 2 fleet's 14 x 14 Riccati blocks); each such
+# product started on the default thread pool costs milliseconds of thread
+# hand-off on a CPU host that runs other test workers (on an 8-core host:
+# 13.7 ms against 0.018 ms for a (2, 14, 14) product with eight threads
+# against one), and the sizes here gain nothing from threads. What the
+# tests compare, and to what tolerance, is unchanged.
+torch.set_num_threads(1)
+
 FEET = ["LF_FOOT", "LH_FOOT", "RF_FOOT", "RH_FOOT"]
 Q_STAND = [0, 0, 0.4792, 0, 0, 0, 1, -0.1, 0.7, -1.0, -0.1, -0.7, 1.0, 0.1,
            0.7, -1.0, 0.1, -0.7, 1.0]
@@ -37,6 +46,21 @@ def fields(obj):
 def np_tree(x):
     """JAX pytree -> the same structure with numpy leaves."""
     return jax.tree.map(np.array, x)
+
+
+def jax_fleet(fn, sol, *per_scenario):
+    """A jitted one-scenario JAX function `fn(sol, *args)` on each scenario
+    of a fleet (numpy Solution fields (B, ...), args (B, ...)), its outputs
+    stacked over B as numpy: one trace for every scenario, where a vmap of
+    the function would trace its batched form (a third longer for an
+    update)."""
+    from robotoc_tpu.solver import ocp_solver as JOS
+    outs = []
+    for b in range(len(per_scenario[0])):
+        js = JOS.Solution(**{k: jnp.asarray(v[b]) for k, v in sol.items()})
+        outs.append(np_tree(fn(js, *[jnp.asarray(a[b])
+                                     for a in per_scenario])))
+    return jax.tree.map(lambda *xs: np.stack(xs), *outs)
 
 
 def jax_init_solution(solver, grid, q, v):
@@ -307,3 +331,39 @@ def host_chain(host, model, contacts, ins, shapes):
         ins[0].shape[0])
     assert rc == 0
     return got
+
+
+IIWA_Q_REF = [0, np.pi / 2, 0, np.pi / 2, 0, np.pi / 2, 0]
+IIWA_Q0 = [np.pi / 2, 0, np.pi / 2, 0, np.pi / 2, 0, np.pi / 2]
+
+
+def jax_iiwa():
+    """The iiwa14 configuration-space OCP of tests/test_golden_traces.py
+    (q weight 10, v and a weights 0.01, terminal weights 10 and 0.01,
+    torques within 50, velocities within pi/2), JAX side: model, cost,
+    limits, q0, v0."""
+    from robotoc_tpu.constraints.joint_limits import make_joint_limits
+    from robotoc_tpu.costs.config_cost import make_config_cost
+    from robotoc_tpu.models import load_robot
+    m = load_robot("iiwa14")
+    cost = make_config_cost(m, q_ref=jnp.asarray(IIWA_Q_REF), q_weight=10,
+                            v_weight=0.01, a_weight=0.01, u_weight=0.0,
+                            q_weight_terminal=10, v_weight_terminal=0.01)
+    lim = make_joint_limits(m, u_limit=jnp.full(7, 50.0),
+                            v_limit=jnp.full(7, np.pi / 2))
+    return dict(model=m, cost=cost, limits=lim, q0=jnp.asarray(IIWA_Q0),
+                v0=jnp.zeros(7))
+
+
+def perturbed_arm_iterate(sol, seed, scale=0.3):
+    """Numpy fields of a port iterate (UnconstrSolution or
+    ParNMPCSolution) moved by seeded noise: the primal and the
+    multipliers by scale * N(0, 1), the PDIPM pairs by exp(0.3 N(0, 1))
+    factors (kept positive); the auxiliary matrices of ParNMPC stay."""
+    rng = np.random.default_rng(seed)
+    f = {k: np.array(v.numpy()) for k, v in vars(sol).items()}
+    for name in ("q", "v", "a", "u", "lmd", "gmm", "beta"):
+        f[name] = f[name] + scale * rng.standard_normal(f[name].shape)
+    for name in ("slack", "dual"):
+        f[name] = f[name] * np.exp(0.3 * rng.standard_normal(f[name].shape))
+    return f

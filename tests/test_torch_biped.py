@@ -79,10 +79,11 @@ def test_description_matches_jax(case):
     assert trm.chain_levels(tm) == ((0, (0,)),) + tuple(
         (1, (i, i + 6)) for i in range(1, 7))
     q, v, a, _ = icub_states(3, 1)
+    wants = np_tree(jax.jit(jax.vmap(lambda q, v, a: (
+        jrm.forward_kinematics(jm, q), jrm.rnea(jm, q, v, a),
+        jrm.crba(jm, q))))(q, v, a))
     for i in range(3):
-        want = np_tree((jrm.forward_kinematics(jm, jnp.asarray(q[i])),
-                        jrm.rnea(jm, *map(jnp.asarray, (q[i], v[i], a[i]))),
-                        jrm.crba(jm, jnp.asarray(q[i]))))
+        want = jax.tree.map(lambda x: x[i], wants)
         got = (trm.forward_kinematics(tm, T(q[i])),
                trm.rnea(tm, T(q[i]), T(v[i]), T(a[i])),
                trm.crba(tm, T(q[i])))

@@ -22,6 +22,7 @@ tree that is not a star; its stages are made from numpy seeds
 """
 import ctypes
 import dataclasses
+import functools
 import shutil
 
 import numpy as np
@@ -34,7 +35,6 @@ import jax.numpy as jnp
 from _torch_cases import host_chain, icub_soles_jax
 
 from robotoc_tpu.models import contacts as jct
-from robotoc_tpu.models import load_robot as jload
 from robotoc_tpu_torch import kernels, problems
 from robotoc_tpu_torch.models import load_robot
 from robotoc_tpu_torch.models.contacts import SURFACE, make_contacts
@@ -158,23 +158,38 @@ def test_layout_refuses_other_trees(icub):
         chn.chain_layout(fixed, contacts)
 
 
-def test_chain_plain_matches_xla(icub):
-    model, contacts = icub
-    jm = jload("icub")
-    jc = jct.make_contacts(jm, ("l_sole", "r_sole"),
-                           types=(jct.SURFACE, jct.SURFACE), rect=(0.1, 0.05))
-    args, _ = problems.chain_stages(model, contacts, S, seed=2)
-    got = chn.chain_plain(model, contacts, *args)
+@functools.lru_cache(maxsize=None)
+def _soles_jax():
+    """The JAX package's full iCub on both soles and its own seeded stages
+    (tests/test_pallas_chain.py's), built once per module."""
+    return icub_soles_jax()
 
-    def ref_one(q, v, a, f, fr, pr, Rr):
-        ((tau, C, g, dgdf), (dtq, dtv, M), (dCq, dCv, J), dgdq,
-         (task, dtask)) = jct.fused_stage_derivatives(
-            jm, jc, q, v, a, f, fr, pr, Rr, with_task=True)
+
+@functools.lru_cache(maxsize=None)
+def _xla_oracle():
+    """fused_stage_derivatives (with_task) of the full iCub on both soles,
+    jitted and vmapped once per module: both tests below call it at S = 5
+    stages, so one compile serves both."""
+    m, contacts, _ = _soles_jax()
+
+    def one(q, v, a, f, fr, pr, R):
+        res = jct.fused_stage_derivatives(m, contacts, q, v, a, f, fr, pr, R,
+                                          with_task=True)
+        ((tau, C, g, dgdf), (dtq, dtv, M), (dCq, dCv, J), dgdq) = res[:4]
         return dict(tau=tau, dtau_dq=dtq, dtau_dv=dtv, M=M, C=C, dCdq=dCq,
-                    dCdv=dCv, J=J, g=g, dgdq=dgdq, dgdf=dgdf, task=task,
-                    dtask=dtask)
+                    dCdv=dCv, J=J, g=g, dgdq=dgdq, dgdf=dgdf,
+                    task=res[4][0], dtask=res[4][1])
 
-    ref = jax.jit(jax.vmap(ref_one))(*[jnp.asarray(x.numpy()) for x in args])
+    return jax.jit(jax.vmap(one))
+
+
+def test_chain_plain_matches_xla(icub):
+    """chain_plain on the port's seeded stages (problems.chain_stages, 5
+    stages: the oracle's compile is shared with the branch-cut test)."""
+    model, contacts = icub
+    args, _ = problems.chain_stages(model, contacts, 5, seed=2)
+    got = chn.chain_plain(model, contacts, *args)
+    ref = _xla_oracle()(*[jnp.asarray(x.numpy()) for x in args])
     for name in chn._OUTS:
         want = np.asarray(ref[name])
         err = float(np.abs(got[name].numpy() - want).max())
@@ -228,17 +243,8 @@ def test_routes_follow_xla_near_the_branch_cut(host):
     JAX test's 1e-5, and both follow it to 1e-10 of each output's max-abs
     (the Pallas kernel in interpret mode sits 1e-5 off it there, its
     polynomial acos amplified through the log's Jacobian)."""
-    m, contacts, ins = icub_soles_jax()
-
-    def one(q, v, a, f, fr, pr, R):
-        res = jct.fused_stage_derivatives(m, contacts, q, v, a, f, fr, pr, R,
-                                          with_task=True)
-        ((tau, C, g, dgdf), (dtq, dtv, M), (dCq, dCv, J), dgdq) = res[:4]
-        return dict(tau=tau, dtau_dq=dtq, dtau_dv=dtv, M=M, C=C, dCdq=dCq,
-                    dCdv=dCv, J=J, g=g, dgdq=dgdq, dgdf=dgdf,
-                    task=res[4][0], dtask=res[4][1])
-
-    xla = jax.jit(jax.vmap(one))(*ins)
+    _, _, ins = _soles_jax()
+    xla = _xla_oracle()(*ins)
     model, cts = problems.icub_soles(device="cpu")
     plain = chn.chain_plain(model, cts, *[torch.as_tensor(x) for x in ins])
     got = host_chain(host, model, cts, ins,

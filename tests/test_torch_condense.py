@@ -70,7 +70,7 @@ def stages():
                         for k, v in kin.items()})
     port = {k: v.numpy() for k, v in port.items()}
     return dict(pre_j=pre_j, pre_t=pre_t, pallas=ref_pallas, jax=ref_jax,
-                port=port, kin=kin)
+                port=port, kin=kin, jp=jp, tp=tp)
 
 
 def test_stage_pre_matches(stages):
@@ -111,11 +111,11 @@ def test_wrappers_take_the_plain_path_on_cpu(stages):
 def test_stage_finish_and_expand(stages):
     """stage_finish's y-space blocks and one stage expansion against the
     JAX package (single stage of the flat batch)."""
-    jp = jax_problem(N)
-    tp = to_torch(jp)
+    jp, tp = stages["jp"], stages["tp"]
     pre_j = stages["pre_j"]
     ko_j = {k: jnp.asarray(v) for k, v in stages["jax"].items()}
-    blocks_j = jax.vmap(functools.partial(jstage.stage_finish, 18, 12, 12))(
+    blocks_j = jax.jit(jax.vmap(functools.partial(
+        jstage.stage_finish, 18, 12, 12)))(
         {k: jnp.asarray(v) for k, v in pre_j.items()}, ko_j)
     blocks_t = tstage.stage_finish(
         18, 12, 12, {k: torch.as_tensor(v) for k, v in pre_j.items()},
@@ -134,8 +134,8 @@ def test_stage_finish_and_expand(stages):
     f, beta, mu = (rng.standard_normal(12), rng.standard_normal(18),
                    rng.standard_normal(12))
     cm = np.array([1.0, 1.0, 0.0, 1.0])
-    out_j = jstage.expand(
-        jp["model"], jp["contacts"], jp["limits"], 1e-3,
+    out_j = jax.jit(lambda b, *a: jstage.expand(
+        jp["model"], jp["contacts"], jp["limits"], 1e-3, b, *a))(
         jax.tree.map(lambda x: x[i], blocks_j),
         *[jnp.asarray(x) for x in (dq, dv, du, gn)], 0.025,
         *[jnp.asarray(x) for x in (f, beta, mu, s, z, sc, zc, cm)],

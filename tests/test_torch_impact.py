@@ -98,8 +98,8 @@ def test_impact_stage(case):
     dqv = rng.standard_normal((2, n, 18))
     gmm_new = rng.standard_normal((n, 18))
     jblocks = jistage.StageBlocks(*[jnp.asarray(x.numpy()) for x in blocks])
-    want = np_tree(jax.vmap(lambda b, *a: jistage.expand(
-        jt["model"], jt["contacts"], 1e-3, b, *a))(
+    want = np_tree(jax.jit(jax.vmap(lambda b, *a: jistage.expand(
+        jt["model"], jt["contacts"], 1e-3, b, *a)))(
         jblocks, dqv[0], dqv[1], gmm_new, args[7], args[8], args[9],
         args[18], args[19], args[20], args[22], args[3]))
     got = torch.func.vmap(lambda b, *a: tistage.expand(
@@ -129,7 +129,8 @@ def test_switching_constraint(case):
         close_tree(got, want, TOL, name="residual_and_jacs")
         rng = np.random.default_rng(7 + i)
         G, c0 = rng.standard_normal((18, 48)), rng.standard_normal(18)
-        want = np_tree(jswc.condense(*want, G, c0, 18, 12))
+        want = np_tree(jax.jit(lambda *x: jswc.condense(*x, 18, 12))(
+            *want, G, c0))
         got = tswc.condense(*got, T(G), T(c0), 18, 12)
         close_tree(got, want, TOL, name="condense")
 

@@ -12,6 +12,8 @@ enable_line_search=True, from initial states rotated or lifted by 1e-3
 boundary step): the same accepted step per scenario, and every field to
 1e-8 of its largest magnitude (at least one), as
 tests/test_torch_ocp_slice.py holds the update."""
+import functools
+
 import numpy as np
 import torch
 
@@ -80,6 +82,14 @@ def test_filter_search_takes_full_step_on_empty_filter():
 
 # -- eval_ocp ------------------------------------------------------------
 
+@functools.lru_cache(maxsize=None)
+def _standing():
+    """The JAX standing problem at N 4 and its port counterpart, built once
+    per module."""
+    jp = jax_problem(4)
+    return jp, to_torch(jp)
+
+
 def _jax_eval(jp, costs, sol, q0s, v0s):
     """JAX eval_ocp of each scenario (jitted, vmapped over the fleet)."""
     def one(s, q, v):
@@ -98,8 +108,7 @@ def _port_eval(tp, costs, sol, q0s, v0s):
 
 
 def test_eval_ocp_matches_jax_standing():
-    jp = jax_problem(4)
-    tp = to_torch(jp)
+    jp, tp = _standing()
     warm = TOS.make_initial_solution(tp["model"], tp["contacts"],
                                      tp["limits"], 1e-3, tp["grid"],
                                      tp["q0"], tp["v0"])
@@ -132,8 +141,7 @@ def test_eval_ocp_matches_jax_trot():
 # -- the merit search inside one update ------------------------------------
 
 def test_merit_update_matches_jax():
-    jp = jax_problem(4)
-    tp = to_torch(jp)
+    jp, tp = _standing()
     dq = np.zeros((B, 18))
     dq[0, 5], dq[1, 2] = 1e-3, 1e-3      # yaw, height of the initial state
     q0s = trm.integrate(tp["model"], tp["q0"].expand(B, 19),

@@ -69,10 +69,18 @@ def _J(*xs):
     return [jnp.asarray(x) for x in xs]
 
 
+_JITTED = {}
+
+
 def _jit(fn, *consts):
     """fn(*consts, *args) under jax.jit: one compile in place of the eager
-    dispatch of every op (and of every op of a jacfwd) of the reference."""
-    return jax.jit(lambda *args: fn(*consts, *args))
+    dispatch of every op (and of every op of a jacfwd) of the reference;
+    made once per function and constants (the module's models), so that
+    a parametrized test's later cases reuse the compile."""
+    key = (fn,) + tuple(id(c) for c in consts)
+    if key not in _JITTED:
+        _JITTED[key] = jax.jit(lambda *args: fn(*consts, *args))
+    return _JITTED[key]
 
 
 def test_load_robot_fields(models):
@@ -108,12 +116,14 @@ def test_lie_configuration_ops(models, seed):
     jm, tm, _, _ = models
     q, v, _, _, _, _ = _inputs(seed)
     q1, _, _, _, _, _ = _inputs(seed + 10)
-    _close(trm.integrate(tm, *_T(q, v)), jrm.integrate(jm, *_J(q, v)))
-    _close(trm.difference(tm, *_T(q, q1)), jrm.difference(jm, *_J(q, q1)))
+    _close(trm.integrate(tm, *_T(q, v)),
+           _jit(jrm.integrate, jm)(*_J(q, v)))
+    _close(trm.difference(tm, *_T(q, q1)),
+           _jit(jrm.difference, jm)(*_J(q, q1)))
     _close(trm.d_difference_dq0(tm, *_T(q, q1)),
-           jrm.d_difference_dq0(jm, *_J(q, q1)))
+           _jit(jrm.d_difference_dq0, jm)(*_J(q, q1)))
     _close(trm.d_difference_dq1(tm, *_T(q, q1)),
-           jrm.d_difference_dq1(jm, *_J(q, q1)))
+           _jit(jrm.d_difference_dq1, jm)(*_J(q, q1)))
 
 
 def test_kinematics(models):
@@ -136,10 +146,11 @@ def test_rnea_crba(models, with_force):
         else None
     fj_j = jct.contact_forces_to_joint(jm, jc, *_J(f)) if with_force \
         else None
-    _close(trm.rnea(tm, *_T(q, v, a), fj_t), jrm.rnea(jm, *_J(q, v, a), fj_j))
-    _close(trm.crba(tm, *_T(q)), jrm.crba(jm, *_J(q)))
+    _close(trm.rnea(tm, *_T(q, v, a), fj_t),
+           _jit(jrm.rnea, jm)(*_J(q, v, a), fj_j))
+    _close(trm.crba(tm, *_T(q)), _jit(jrm.crba, jm)(*_J(q)))
     _close(trm.rnea_derivatives(tm, *_T(q, v, a), fj_t),
-           jrm.rnea_derivatives(jm, *_J(q, v, a), fj_j))
+           _jit(jrm.rnea_derivatives, jm)(*_J(q, v, a), fj_j))
 
 
 def test_baumgarte_residual(models):
@@ -214,6 +225,6 @@ def test_config_cost(models):
     jc_ = jcc.make_config_cost(jm, q_ref=jnp.asarray(Q_STAND), **kw)
     tc_ = tcc.make_config_cost(tm, q_ref=np.array(Q_STAND), **kw)
     _close(tcc.quadratize_stage(tm, tc_, *_T(q, v, a, u), 0.025),
-           jcc.quadratize_stage(jm, jc_, *_J(q, v, a, u), 0.025))
+           _jit(jcc.quadratize_stage, jm, jc_)(*_J(q, v, a, u), 0.025))
     _close(tcc.quadratize_terminal(tm, tc_, *_T(q, v)),
-           jcc.quadratize_terminal(jm, jc_, *_J(q, v)))
+           _jit(jcc.quadratize_terminal, jm, jc_)(*_J(q, v)))

@@ -5,7 +5,7 @@ constraints, the gait cost stack) for a fleet of B = 2 scenarios, each at
 its own numpy-seeded iterate off the warm start (switching multipliers
 included) and with its own perturbed initial state: one port `_update`
 (fleet dim written out) against the JAX `_update(use_pallas=False,
-use_chain=False, enable_sw=True)` vmapped over the fleet, the KKT, step
+use_chain=False, enable_sw=True)` on each scenario, the KKT, step
 size and every Solution field to 1e-8 relative to each field's largest
 magnitude (at least one), as tests/test_torch_ocp_slice.py holds the
 standing update. The port's chain path (ops/chain, its plain version on
@@ -16,9 +16,8 @@ import pytest
 import torch
 
 import jax
-import jax.numpy as jnp
 
-from _torch_cases import (fields, jax_trot, np_tree, trot_iterate,
+from _torch_cases import (fields, jax_fleet, jax_trot, trot_iterate,
                           trot_to_torch)
 
 from robotoc_tpu.models import robot as jrm
@@ -77,9 +76,7 @@ def test_trot_update_matches_jax_f64(case):
             use_pallas=False, use_chain=False)
         return new, kkt, a_p
 
-    js = JOS.Solution(**{k: jnp.asarray(v) for k, v in sol.items()})
-    ref_sol, ref_kkt, ref_ap = np_tree(jax.jit(jax.vmap(upd))(
-        js, jnp.asarray(q0s), jnp.asarray(v0s)))
+    ref_sol, ref_kkt, ref_ap = jax_fleet(jax.jit(upd), sol, q0s, v0s)
     new, kkt, a_p, policy = _port(tp, sol, q0s, v0s, use_chain=True)
     assert policy.Mx is not None          # the switching branch ran
     _close_scaled(kkt.numpy(), ref_kkt, 1e-8, "kkt")

@@ -7,7 +7,7 @@ rows of the touchdown. A fleet of B = 2 scenarios, each at its own
 numpy-seeded iterate near the warm start (switching multipliers included)
 and with its own perturbed initial state: one port `_update` (fleet dim
 written out) against the JAX `_update(use_pallas=False, use_chain=False,
-enable_sw=True)` vmapped over the fleet, the KKT, step size and every
+enable_sw=True)` on each scenario, the KKT, step size and every
 Solution field to 1e-8 relative to each field's largest magnitude (at
 least one), as tests/test_torch_trot_slice.py holds the trot. The port's
 chain path (ops/chain: K6's function with its surface branch and the cost
@@ -25,9 +25,8 @@ import pytest
 import torch
 
 import jax
-import jax.numpy as jnp
 
-from _torch_cases import (fields, jax_walk, np_tree, trot_iterate,
+from _torch_cases import (fields, jax_fleet, jax_walk, trot_iterate,
                           trot_to_torch)
 
 from robotoc_tpu.models import robot as jrm
@@ -95,9 +94,7 @@ def test_walk_update_matches_jax_f64(case):
             use_pallas=False, use_chain=False)
         return new, kkt, a_p
 
-    js = JOS.Solution(**{k: jnp.asarray(v) for k, v in sol.items()})
-    ref_sol, ref_kkt, ref_ap = np_tree(jax.jit(jax.vmap(upd))(
-        js, jnp.asarray(q0s), jnp.asarray(v0s)))
+    ref_sol, ref_kkt, ref_ap = jax_fleet(jax.jit(upd), sol, q0s, v0s)
     new, kkt, a_p, policy = _port(tp, sol, q0s, v0s, use_chain=True)
     assert policy.Mx is not None          # the switching branch ran
     _close_scaled(kkt.numpy(), ref_kkt, 1e-8, "kkt")
