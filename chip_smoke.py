@@ -16,7 +16,10 @@ Phases, each of which raises (and so exits non-zero) on failure:
      shapes; on the stage slots of the iCub walk fleet, K6's surface-contact
      instance without and with the cost fold and the 34-row Kc (also on
      seeded dense cone rows of the same shapes); K6 on the full iCub's
-     nv 35 tree on seeded stages, without and with the fold. Time kernel
+     nv 35 tree on seeded stages, without and with the fold; K6 on the A1
+     crawl fleet's stage slots (no fold) and on seeded A1 stages (without
+     and with it), K1 and Kc on the flying trot fleet's (flight slots
+     included). Time kernel
      and library call by device time (the profiler), the plain version and
      one wrapper call by CUDA events (float32); count K6's operations on
      the host (csrc/chain_flops.cpp, g++) for its bound; print, not gated,
@@ -40,9 +43,10 @@ Phases, each of which raises (and so exits non-zero) on failure:
      the iterate and from two jittered copies); twelve float32 faults
      planted one at a time in one kernel's outputs, each of which the drift
      gate must refuse where the old agreement with the plain step (1e-2 of
-     the step, printed, not gated) refuses it, and the noise plants at
-     1e-5 and 1e-6, printed only; time per MPC step, host time
-     by part and the device idle share; then float64, one unperturbed
+     the step, printed, not gated) refuses it (the noise plants at 1e-5
+     and 1e-6, printed only, are the "readings" phase's); time per MPC
+     step, host time by part and the device idle share; then float64, one
+     unperturbed
      scenario, 15 updates through the kernels, ending at KKT < 1e-3;
   5. "golden": float64, one standing scenario, 16 updates through the
      kernels: reproduce tests/golden/anymal_standing_ocp.npz to 1e-6 with
@@ -52,13 +56,13 @@ Phases, each of which raises (and so exits non-zero) on failure:
      biped-walk MPC (T 0.7, N 25, 3 impact slots, switching constraints,
      the gait cost stack folded into K6's surface instance, 34 cone rows
      through Kc) warmed in float64 at B = 1 the way the MPC runs (standing
-     init, closed-loop updates to mid-gait t = 0.62), then B = 128 float32
-     scenarios with perturbed initial states, two updates per MPC step:
-     launch counts, finite KKT, agreement with the plain versions (in
-     float64 gated; in float32 reported, and the kernel step's drift from
-     the float64 step gated against the plain float32 steps', then shown
-     with one kernel at a time swapped for its plain version), time per
-     MPC step, host time by part and the device idle share;
+     init, closed-loop updates every WALK_DT s to mid-gait t = 0.62),
+     then B = 128 float32 scenarios with perturbed initial states, two
+     updates per MPC step: launch counts, finite KKT, agreement with the
+     plain versions (in float64 gated; in float32 reported, and the kernel
+     step's drift from the float64 step gated against the plain float32
+     steps'), time per MPC step, host time by part and the device idle
+     share;
   7. "solve": OCPSolver.solve and the line searches through the kernels:
      the golden problem in float64 through solve (16 iterations, against
      the 16 updates to 1e-10 and the golden trace to 1e-6); the barrier
@@ -84,7 +88,22 @@ Phases, each of which raises (and so exits non-zero) on failure:
      (KKT < 1e-7 in < 60 iterations, agreement with the Riccati solver at
      that test's tolerances, the filter search to 1e-6 without a
      numerical failure) and a B = 128 fleet, printed;
-  9. print the kernels' JSON line, the card line and the final status line.
+  9. "gaits": the remaining periodic gaits. The Unitree A1 crawl on a
+     height map (four point feet on K6's four-feet instance, its stack not
+     folded: a second configuration cost on a time-varying reference; T
+     0.5, N 20) warmed in float64 at B = 1 as the MPC runs (init, then
+     closed-loop updates to mid-gait, one foot in swing and its touchdown
+     in the horizon), its control policy on the card against a host copy
+     (1e-12); then B = 128 fleets of the crawl, the ANYmal pace (no fold)
+     and the ANYmal flying trot (the fold; a flight with no contact active
+     and its touchdown in the horizon), each with the trot's gates:
+     launches of all six kernels, finite KKT, the float64 step through the
+     kernels against the plain versions (1e-8), the float32 drift at
+     TROT_K; ms per MPC step and the device idle share (the crawl's host
+     time by part); the flying trot's kernels against their plain versions
+     at its flight slots (float64 and float32, TOL);
+ 10. print the seconds of each phase, the kernels' JSON line, the card
+     line and the final status line.
 The phase "readings" (not a default phase) prints the trot gate's readings
 on three fleet seeds and two iterates with the planted faults' on each,
 and at the later iterate where the float64 difference off the unit
@@ -115,6 +134,7 @@ import torch
 from robotoc_tpu_torch import convert, kernels, problems
 from robotoc_tpu_torch.models import contacts as ct
 from robotoc_tpu_torch.models import robot as rm
+from robotoc_tpu_torch.mpc import ControlPolicy
 from robotoc_tpu_torch.ops import chain as chn
 from robotoc_tpu_torch.ops import condense as cd
 from robotoc_tpu_torch.parnmpc import solver as PN
@@ -129,10 +149,13 @@ B, N = 128, 20
 # H100 SXM: HBM3 rate and the non-tensor-core peaks (NVIDIA data sheet)
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {torch.float32: 67e12, torch.float64: 34e12}
+# timed repetitions of a host-clock time (host_ms: the median of REPS
+# calls after one untimed; the gait fleets take 2)
+REPS = 3
 # kernel vs plain version, relative to each output's largest magnitude
 TOL = {torch.float64: 1e-10, torch.float32: 1e-4}
 ALL_PHASES = ("build", "kernels", "slice", "trot", "golden", "walk",
-              "solve", "unconstr")
+              "solve", "unconstr", "gaits")
 # the trot's float32 gate: each field's drift from the float64 step at most
 # TROT_K times the largest drift among the plain float32 step and the plain
 # steps from iterates jittered with these seeds: the largest round factor
@@ -144,8 +167,15 @@ JITTER_SEEDS = (7, 11)
 # relative noise whose refusal is gated, and the sizes only printed
 PLANT_EPS, PLANT_EPS_SHOWN = 1e-4, (1e-5, 1e-6)
 # the walk's closed-loop warm start: control step (the JAX package's bench
-# takes 0.005 s; 0.02 s reaches mid-gait in a quarter of the updates)
-WALK_N, WALK_T, WALK_DT = 25, 0.62, 0.02
+# takes 0.005 s; 0.04 s reaches mid-gait in an eighth of the updates)
+WALK_N, WALK_T, WALK_DT = 25, 0.62, 0.04
+# the gait paths: the A1 crawl warmed in float64 at B = 1 (`init` with
+# CRAWL_INIT updates, closed-loop updates every CRAWL_DT s) to CRAWL_T, when
+# the rear-right foot swings (its touchdown at 0.75 s, the front-right
+# foot's lift at 0.8 s in the horizon); its fleet's initial states moved by
+# GAIT_SCALE N(0, 1); the pace and the flying trot planned at 0.35 s from
+# standing (problems.anymal_gait), their fleets as the trot's
+CRAWL_T, CRAWL_DT, CRAWL_INIT, GAIT_SCALE = 0.6, 0.1, 10, 0.01
 FIELDS = ("q", "v", "a", "u", "f", "lmd", "gmm", "beta", "mu", "s_lim",
           "z_lim", "s_cone", "z_cone")
 # K6's records: (key in the kernels line, name) of each case; the full
@@ -155,8 +185,11 @@ K6_RECORDS = {"point fold": ("K6", "K6 chain"),
               "surface fold": ("K6s", "K6 chain surface"),
               "surface": ("K6s nofold", "K6 chain surface no fold"),
               "nv35 fold": ("K6 nv35", "K6 chain surface nv35"),
-              "nv35": ("K6 nv35 nofold", "K6 chain surface nv35 no fold")}
+              "nv35": ("K6 nv35 nofold", "K6 chain surface nv35 no fold"),
+              "a1": ("K6 a1 nofold", "K6 chain A1 no fold")}
 K6_NV35_STAGES = 1024
+# and the A1's four-feet tree on this many seeded stages (compared only)
+K6_A1_STAGES = 1024
 # what each time of a kernel's record measures
 CLOCK = {"ms": "device", "library_ms": "device", "call_ms": "events",
          "plain_ms": "events"}
@@ -216,15 +249,22 @@ def kernel_ms(fn, reps=20, warmup=3):
     it was read on. By the profiler's CUDA activity ("device"): median over
     `reps` calls of their sum. CUDA events around one call (cuda_ms) also
     hold the wrapper's host time when the card waits for it; this does
-    not. Where the profiler records no device activity, CUDA events around
+    not. Where the profiler records no device activity, or not the same
+    number of events for each call in three sessions, CUDA events around
     `reps` calls in a row, over `reps` ("events")."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
-    times = [t for _, t in _device_events(fn, reps)]
-    if not times:
-        print("  kernel_ms: the profiler recorded no device activity; "
-              "timed by CUDA events instead", flush=True)
+    # a session whose count of device events is not a whole number of
+    # calls lost some (read as an average, it would undercount): up to
+    # three sessions, then CUDA events
+    for _ in range(3):
+        times = [t for _, t in _device_events(fn, reps)]
+        if len(times) % reps == 0:
+            break
+    if not times or len(times) % reps:
+        print("  kernel_ms: the profiler recorded no device activity or "
+              "lost some; timed by CUDA events instead", flush=True)
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
@@ -233,16 +273,15 @@ def kernel_ms(fn, reps=20, warmup=3):
         end.record()
         end.synchronize()
         return start.elapsed_time(end) / reps, "events"
-    if len(times) % reps == 0:   # the same kernels each call, in order
-        per = len(times) // reps
-        return float(np.median([sum(times[i:i + per])
-                                for i in range(0, len(times), per)])), \
-            "device"
-    return sum(times) / reps, "device"
+    per = len(times) // reps     # the same kernels each call, in order
+    return float(np.median([sum(times[i:i + per])
+                            for i in range(0, len(times), per)])), "device"
 
 
-def host_ms(fn, reps=5):
-    """Median wall time of `fn` ending in a device synchronise."""
+def host_ms(fn, reps=None):
+    """Median wall time of `fn` ending in a device synchronise, over `reps`
+    timed calls (REPS when None) after one untimed."""
+    reps = REPS if reps is None else reps
     fn()
     torch.cuda.synchronize()
     times = []
@@ -356,6 +395,27 @@ def walk_problem(dtype=torch.float64, device=None):
     """The iCub walk at full width, planned mid-gait from standing."""
     return problems.icub_walk(N=WALK_N, dtype=dtype, device=device,
                               t0=WALK_T)
+
+
+def crawl_problem(N=N, dtype=torch.float64, device=None):
+    """The A1 crawl at full width, planned at CRAWL_T from standing."""
+    return problems.a1_crawl(N=N, dtype=dtype, device=device, t0=CRAWL_T)
+
+
+def gait_problem(name):
+    """problems.anymal_gait(name, ...) ("pace", "flying_trot") as a
+    builder of N, dtype and device."""
+    def make(N=N, dtype=torch.float64, device=None):
+        return problems.anymal_gait(name, N=N, dtype=dtype, device=device)
+    return make
+
+
+def flight_slots(grid):
+    """Stage slots of a grid (one scenario's) where no contact is active,
+    impact slots left out."""
+    cm = grid.contact_mask[:-1].sum(dim=-1).cpu()
+    imp = grid.is_impact[:-1].cpu()
+    return [i for i in range(cm.shape[0]) if cm[i] == 0 and imp[i] == 0]
 
 
 def chain_args(model, contacts, costs, sol_b, grid_b, with_cost):
@@ -552,6 +612,15 @@ def phase_kernels(dev):
                             use_chain=False)
     xw64 = {k: prew[k].contiguous() for k in cd.IN_NAMES}
     xw = [xw64[k] for k in ("dgdq", "dgdf", "d_cone")]
+    # the A1 crawl's stage slots (K6 without the cost fold, the task rows
+    # feeding the stack) and the flying trot's condense inputs (flight
+    # slots: every contact row of K1 inactive, every cone row of Kc masked)
+    pc, solc, gridc = trot_inputs(dev, make=crawl_problem)
+    pf, solf, gridf = trot_inputs(dev, make=gait_problem("flying_trot"))
+    pref = OS.stage_pre_all(pf.model, pf.mpc.contacts, pf.mpc.limits, 1e-3,
+                            pf.costs, solf, gridf, n_imp=pf.mpc.n_reserved,
+                            use_chain=False)
+    xf64 = {k: pref[k].contiguous() for k in cd.IN_NAMES}
     # the walk's wrench cones act on the local wrench, so its dgdq rows
     # are zero; seeded dense rows at the same shapes reach every block of
     # the 34-row Kc
@@ -580,12 +649,23 @@ def phase_kernels(dev):
         for key, wc in (("nv35", False), ("nv35 fold", True)):
             k6_cases[key] = (m35, c35) + tuple(problems.chain_stages(
                 m35, c35, K6_NV35_STAGES, seed=6, with_cost=wc))
+    # the A1 tree (K6's four-feet instance): the crawl fleet's stage slots
+    # without the fold (its path, timed) and seeded stages without and with
+    # it (compared only); absent from packages without the A1
+    if hasattr(problems, "a1_crawl"):
+        ca = pc.mpc.contacts
+        k6_cases["a1"] = (pc.model, ca) + chain_args(
+            pc.model, ca, pc.costs, solc, gridc, False)
+        for key, wc in (("a1 seeded", False), ("a1 seeded fold", True)):
+            k6_cases[key] = (pc.model, ca) + tuple(problems.chain_stages(
+                pc.model, ca, K6_A1_STAGES, seed=7, with_cost=wc))
     # K6's operation counts, on the host beside the card's work: (value,
     # tangent) operations over all stages
     kernels.host_library("chain_flops")
     pool = ThreadPoolExecutor(6)
     k6_ops = {key: _op_counts(pool, mo, cts, args, cost)
-              for key, (mo, cts, args, cost) in k6_cases.items()}
+              for key, (mo, cts, args, cost) in k6_cases.items()
+              if key in K6_RECORDS}
     pool.shutdown(wait=False)
     for dtype in (torch.float64, torch.float32):
         x = {k: v.to(dtype) for k, v in x64.items()}
@@ -607,6 +687,15 @@ def phase_kernels(dev):
         p1w, p2w = cd.k1_plain(*k1w_in), cd.k2_plain(*k2w_in)
         e1w = _compare("K1 walk", cd.k1(*k1w_in), p1w, dtype)
         e2w = _compare("K2 walk", cd.k2(*k2w_in), p2w, dtype)
+        # K1 and Kc on the flying trot's condense inputs (flight slots)
+        xf = {k: v.to(dtype) for k, v in xf64.items()}
+        k1f_in = [xf[n] for n in ("M", "J", "inactive", "Tw1", "Tw2", "r1",
+                                  "e2")]
+        e1f = _compare("K1 flying trot", cd.k1(*k1f_in),
+                       cd.k1_plain(*k1f_in), dtype)
+        kcf_in = [xf["dgdq"], xf["dgdf"], xf["d_cone"]]
+        ecf = _compare("Kc flying trot", cd.kc(*kcf_in),
+                       cd.kc_plain(*kcf_in), dtype)
         k3_in, k3w_in = ([q1[3], q1[4], q2[3].contiguous()] + [
             xx[n] for n in ("Aqq", "Aqv", "xres_q", "Fv_res", "sA", "lam2",
                             "lmdgmm")]
@@ -633,7 +722,8 @@ def phase_kernels(dev):
             k6[key] = (model, contacts, args, cost, got, err)
         if dtype != torch.float32:
             continue
-        S, Sw = x["M"].shape[0], xw[0].shape[0]
+        S, Sw, Sf = x["M"].shape[0], xw[0].shape[0], xf["M"].shape[0]
+        Xf = torch.cat([xf["dgdq"], xf["dgdf"]], dim=-1).contiguous()
         nv, nf_, nu = 18, 12, 12
         w = 2 * nv + nu
         Xc = torch.cat([x["dgdq"], x["dgdf"]], dim=-1).contiguous()
@@ -665,6 +755,13 @@ def phase_kernels(dev):
             ("K3w", "K3 condense_k3 walk", cd.k3, cd.k3_plain, k3w_in, e3w,
              Sw * flops_k3(nv, nu), None,
              "robotoc_tpu/ops/pallas_condense.py:399"),
+            ("K1ft", "K1 condense_k1 flying trot", cd.k1, cd.k1_plain,
+             k1f_in, e1f, Sf * flops_k1(nv, nf_, w), None,
+             "robotoc_tpu/ops/pallas_condense.py:331"),
+            ("Kcft", "Kc condense_kc flying trot", cd.kc, cd.kc_plain,
+             kcf_in, ecf, Sf * flops_kc(nv, nf_, 20),
+             lambda: torch.einsum("sr,sri,srj->sij", xf["d_cone"], Xf, Xf),
+             "robotoc_tpu/ops/pallas_condense.py:348"),
         ]
         for key, name, kern, plain, args, err, flops, lib, repl in specs:
             outs = kern(*args)
@@ -687,6 +784,8 @@ def phase_kernels(dev):
                 bound(nbytes(*l_in) + nbytes(*outs),
                       B * Nh * flops_k5_step(36, 12, nf), dtype))
         for key, (model, contacts, args, cost, got, err) in k6.items():
+            if key not in K6_RECORDS:
+                continue
             n_val, n_tan = k6_ops[key]()
             print(f"  K6 {key}: {args[0].shape[0]} stages, {n_val} value + "
                   f"{n_tan} tangent operations (csrc/chain_flops.cpp)")
@@ -875,23 +974,6 @@ def fault(kind, eps=PLANT_EPS, seed=0):
     return make
 
 
-def _drift_by_kernel(tag, step, sol0, sol_64):
-    """The float32 kernel step (`step()`) with one kernel at a time replaced
-    by its plain version, where its caller looks it up: each field's drift
-    from the float64 step. A single swap that brings a field's drift down
-    to the plain step's points at that kernel's float32 rounding; several
-    such swaps point at the step's sensitivity to any rounding change.
-    Returns {kernel: {field: drift}}."""
-    out = {}
-    for key, (_, _, plain) in KERNEL_SITES.items():
-        with _swapped(key, lambda kern: plain):
-            sol = step()
-        out[key] = {n: _drift(n, sol, sol0, sol_64) for n in FIELDS}
-        print(f"  {tag} float32 drift with {key} plain: "
-              + ", ".join(f"{n} {v:.1e}" for n, v in out[key].items()))
-    return out
-
-
 def drift_rows(sol0, steps, sol_64):
     """{field: {step: drift}} of float32 steps from the plain float64 step
     from the same iterate (`_drift`). `steps` holds the kernel step
@@ -936,13 +1018,15 @@ def _f32_drift(tag, sol0, steps, sol_64, factor=10.0, strict=True):
 
 
 def _run_path(tag, mk, grid, sol0, q0s, v0s, parts_fn, strict=True,
-              strict_kkt=None):
+              strict_kkt=None, reps=None):
     """Drive one path: warm-up, counts reset, one MPC step through the
     kernels, counts read; the same step on the plain versions; timings.
     The float32 agreement (`_agree`) gates the KKT when strict_kkt (None:
     as strict) and the fields when strict; a gate not held is returned in
     the result ("f32_gates_missed") for the caller to settle. Returns the
-    launch counts, the result and the two steps' (sol, kkts)."""
+    launch counts, the result and the two steps' (sol, kkts). `reps`: the
+    timed kernel steps' repetitions (host_ms); the plain step is timed
+    once."""
     strict_kkt = strict if strict_kkt is None else strict_kkt
     s_kern, s_plain = mk(True), mk(False)
     _mpc_step(s_kern, grid, sol0, q0s, v0s)            # warm-up
@@ -964,9 +1048,10 @@ def _run_path(tag, mk, grid, sol0, q0s, v0s, parts_fn, strict=True,
     fails = kkt_fails + field_fails
     print(f"  {tag}: fleet KKT after the step: max "
           f"{float(out_k[1][-1].max()):.4e}")
-    step_ms = host_ms(lambda: _mpc_step(s_kern, grid, sol0, q0s, v0s))
+    step_ms = host_ms(lambda: _mpc_step(s_kern, grid, sol0, q0s, v0s),
+                      reps=reps)
     step_plain_ms = host_ms(lambda: _mpc_step(s_plain, grid, sol0, q0s,
-                                              v0s))
+                                              v0s), reps=1)
     parts = parts_fn()
     dev_ms, top = device_time(lambda: s_kern.update(grid, q0s, v0s, sol0))
     out = dict(B=B, N=s_kern.N, dtype="float32", ms_per_mpc_step=step_ms,
@@ -990,8 +1075,9 @@ def _run_path(tag, mk, grid, sol0, q0s, v0s, parts_fn, strict=True,
 
 
 def _parts(model, contacts, limits, costs, sol_b, grid_b, q_b, v_b,
-           n_imp, enable_sw, with_cost):
-    """Host time of the synchronised parts of one update (kernels on)."""
+           n_imp, enable_sw, with_cost, reps=None):
+    """Host time of the synchronised parts of one update (kernels on),
+    each the median of `reps` timed calls (host_ms)."""
     args, cost = chain_args(model, contacts, costs, sol_b, grid_b,
                             with_cost)
     pre = OS.stage_pre_all(model, contacts, limits, 1e-3, costs, sol_b,
@@ -1000,21 +1086,18 @@ def _parts(model, contacts, limits, costs, sol_b, grid_b, q_b, v_b,
     kw = dict(n_imp=n_imp, enable_sw=enable_sw, use_chain=True)
     built = OS._build(model, contacts, limits, 1e-3, costs, sol_b, grid_b,
                       q_b, v_b, **kw)
-    return {
-        "chain_K6": host_ms(lambda: chn.chain(model, contacts, *args,
-                                              *cost)),
-        "stage_pre_all": host_ms(lambda: OS.stage_pre_all(
+    return {name: host_ms(fn, reps) for name, fn in (
+        ("chain_K6", lambda: chn.chain(model, contacts, *args, *cost)),
+        ("stage_pre_all", lambda: OS.stage_pre_all(
             model, contacts, limits, 1e-3, costs, sol_b, grid_b,
             n_imp=n_imp, use_chain=True)),
-        "condense": host_ms(lambda: cd.condense(kin)),
-        "build": host_ms(lambda: OS._build(model, contacts, limits, 1e-3,
-                                           costs, sol_b, grid_b, q_b, v_b,
-                                           **kw)),
-        "riccati": host_ms(lambda: bs.solve(built[0], built[2])),
-        "direction_and_step": host_ms(lambda: OS._direction_and_step(
+        ("condense", lambda: cd.condense(kin)),
+        ("build", lambda: OS._build(model, contacts, limits, 1e-3, costs,
+                                    sol_b, grid_b, q_b, v_b, **kw)),
+        ("riccati", lambda: bs.solve(built[0], built[2])),
+        ("direction_and_step", lambda: OS._direction_and_step(
             model, contacts, limits, 1e-3, 0.995, sol_b, grid_b, built,
-            n_imp=n_imp)),
-    }
+            n_imp=n_imp)))}
 
 
 def phase_slice(dev):
@@ -1031,13 +1114,14 @@ def phase_slice(dev):
         False, False))
 
 
-def trot_fleet(dtype, dev, seed=0, n=N, b=B):
+def trot_fleet(dtype, dev, seed=0, n=N, b=B, make=problems.anymal_trot):
     """The trot fleet in `dtype` (horizon n, default N): b scenarios (B)
     whose initial configurations `problems.fleet` moves with numpy seed
     `seed`. Returns the problem, mk(use_kernels, search=False) -> the
     fleet's solver (search: its enable_line_search), and (sol0, q0s,
-    v0s)."""
-    p = problems.anymal_trot(N=n, dtype=dtype, device=dev)
+    v0s). `make` builds another gait problem the same way (the pace, the
+    flying trot)."""
+    p = make(N=n, dtype=dtype, device=dev)
     mpc = p.mpc
 
     def mk(k, search=False):
@@ -1159,7 +1243,11 @@ def phase_trot(dev):
                    "trot iterate 1", mk64, p64.grid, sol64_1, q64, v64)[0],
                f32_drift=gate["f32_drift"], drift_ratio=gate["drift_ratio"],
                drift_factor=TROT_K)
-    out["plants"] = plant_test("trot", f32, out_p, gate, sol64)
+    # the gated plants; the noise plants only printed (PLANT_EPS_SHOWN)
+    # are read by the "readings" phase
+    out["plants"] = plant_test("trot", f32, out_p, gate, sol64, cases=[
+        (key, kind, PLANT_EPS, True) for key in KERNEL_SITES
+        for kind in ("noise", "bf16")])
     # float64, one unperturbed scenario, 15 updates through the kernels
     sol = p64.solver.init_solution(p64.grid, p64.q0, p64.v0)
     before = read_counts()
@@ -1322,7 +1410,7 @@ def phase_walk(dev):
     # the walk's iterate warmed as the MPC runs, float64, one scenario
     t0 = time.perf_counter()
     p = problems.icub_walk(N=WALK_N, dtype=f64, device=dev)
-    t, q, v = problems.walk_warm_start(p, WALK_T, WALK_DT)
+    t, q, v = problems.warm_start(p, WALK_T, WALK_DT)
     mpc = p.mpc
     kkt_w = mpc.kkt_error(t, q, v)
     warm_s = time.perf_counter() - t0
@@ -1335,27 +1423,8 @@ def phase_walk(dev):
           f"{int(mpc.grid.is_impact.sum())}")
     # the fleet: B scenarios whose initial states are moved by
     # 0.0075 N(0, 1) in the tangent space (numpy seed 0)
-    rng = np.random.default_rng(0)
-    dq = rng.standard_normal((B, p.model.nv))
-
     def fleet(dtype):
-        model = convert.astype(p.model, dtype)
-        objs = [convert.astype(x, dtype) for x in (
-            mpc.contacts, mpc.limits, mpc._costs, mpc.grid, mpc.sol)]
-        sol0 = objs[4].map(lambda x: x.expand((B,) + x.shape).contiguous())
-        q0s = rm.integrate(model, q.to(dtype).expand(B, model.nq),
-                           torch.as_tensor(0.0075 * dq, dtype=dtype,
-                                           device=dev))
-        v0s = v.to(dtype).expand(B, model.nv).contiguous()
-
-        def mk(k, search=False):
-            return OS.OCPSolver(model, objs[0], objs[2], objs[1], T=p.T,
-                                N=p.N, n_reserved_events=mpc.n_reserved,
-                                options=OS.SolverOptions(
-                                    switching_constraints=True,
-                                    use_kernels=k,
-                                    enable_line_search=search))
-        return model, objs, sol0, q0s, v0s, mk
+        return warm_fleet(p, q, v, dtype, dev, scale=0.0075)
 
     model, (contacts, limits, costs, grid, _), sol0, q0s, v0s, mk = fleet(f32)
     WALK_FLEET.update(mk=mk, grid=grid, sol0=sol0, q0s=q0s, v0s=v0s)
@@ -1374,9 +1443,6 @@ def phase_walk(dev):
     out["f32_drift"], _ = _f32_drift("walk", sol64, {
         "kernel": out_k[0], "plain": out_p[0], "plain jittered": sol_j},
         sol_p64)
-    out["f32_drift_by_kernel"] = _drift_by_kernel(
-        "walk", lambda: _mpc_step(mk(True), grid, sol0, q0s, v0s)[0], sol64,
-        sol_p64)
     if out["f32_gates_missed"]:
         print("  walk: float32 gates missed (reported, float64 gate holds): "
               + "; ".join(out["f32_gates_missed"]))
@@ -1385,6 +1451,33 @@ def phase_walk(dev):
                biped_standing_launches=standing_launches)
     print("walk: " + json.dumps(out))
     return launches, out
+
+
+def warm_fleet(p, q, v, dtype, dev, scale, seed=0):
+    """A fleet of B scenarios at the iterate a gait problem's MPC holds
+    (after `problems.warm_start`), in `dtype`: the MPC's contacts, limits,
+    cost stack, grid and solution cast and the solution broadcast, the
+    initial state (q, v) with q moved by scale N(0, 1) in the tangent
+    space (numpy seed `seed`, the same draw in every dtype). Returns
+    (model, (contacts, limits, costs, grid, sol), sol0, q0s, v0s, mk),
+    mk(use_kernels, search=False) -> the fleet's solver."""
+    mpc = p.mpc
+    dq = np.random.default_rng(seed).standard_normal((B, p.model.nv))
+    model = convert.astype(p.model, dtype)
+    objs = [convert.astype(x, dtype) for x in (
+        mpc.contacts, mpc.limits, mpc._costs, mpc.grid, mpc.sol)]
+    sol0 = objs[4].map(lambda x: x.expand((B,) + x.shape).contiguous())
+    q0s = rm.integrate(model, q.to(dtype).expand(B, model.nq),
+                       torch.as_tensor(scale * dq, dtype=dtype, device=dev))
+    v0s = v.to(dtype).expand(B, model.nv).contiguous()
+
+    def mk(k, search=False):
+        return OS.OCPSolver(model, objs[0], objs[2], objs[1], T=p.T, N=p.N,
+                            n_reserved_events=mpc.n_reserved,
+                            options=OS.SolverOptions(
+                                switching_constraints=True, use_kernels=k,
+                                enable_line_search=search))
+    return model, objs, sol0, q0s, v0s, mk
 
 
 # the walk's float32 fleet, kept by phase_walk for phase_solve's reading
@@ -1588,29 +1681,30 @@ UNCONSTR_FIELDS = ("q", "v", "a", "u", "lmd", "gmm", "beta", "slack", "dual")
 
 def _arm_timing(tag, p, q0s, v0s, sol):
     """ms per solve iteration of the fleet (one `update` is one iteration's
-    work: a build and a Newton step; host clock, synchronised, median of
-    5), the same by part, and from one profiler trace of it the device ms
-    and the device's idle share."""
+    work: a build and a Newton step; host clock, synchronised, one timed
+    call after one untimed), the same by part, and from one profiler trace
+    of it the device ms and the device's idle share."""
     def one():
         return p.solver.update(q0s, v0s, sol)
 
-    ms = host_ms(one)
+    ms = host_ms(one, 1)
     args = p.solver._args()
     sb, qb, vb, _ = US._fleet(sol, q0s, v0s)
     if isinstance(p.solver, PN.UnconstrParNMPCSolver):
         terms = PN._stage_terms(*args, 0.0, sb, qb, vb)
         parts = {"stage_terms": host_ms(lambda: PN._stage_terms(
-            *args, 0.0, sb, qb, vb)),
+            *args, 0.0, sb, qb, vb), 1),
             "inverse_corrections_step": host_ms(lambda: PN._update(
                 *args, 0.995, 0.0, False, 0.75, 0.05, sb, qb, vb,
-                terms=terms))}
+                terms=terms), 1)}
     else:
         built = US._build_kkt(*args, 0.0, sb, qb, vb)
         parts = {"build": host_ms(lambda: US._build_kkt(*args, 0.0, sb, qb,
-                                                        vb)),
-                 "riccati": host_ms(lambda: lqr.solve(built[0], built[3])),
+                                                        vb), 1),
+                 "riccati": host_ms(lambda: lqr.solve(built[0], built[3]),
+                                    1),
                  "direction_step": host_ms(lambda: US._direction_step(
-                     p.model, p.limits, 1e-3, 0.995, built, sb))}
+                     p.model, p.limits, 1e-3, 0.995, built, sb), 1)}
     dev_ms, top = device_time(one)
     idle = None if dev_ms is None else 1.0 - dev_ms / ms
     print(f"  {tag}: {ms:.2f} ms per solve iteration (host clock), by part "
@@ -1809,6 +1903,204 @@ def phase_unconstr(dev):
     return out
 
 
+def _cpu(obj):
+    """A dataclass of tensors (a solution, grid or policy) with every
+    tensor copied to the host."""
+    return dataclasses.replace(obj, **{
+        f.name: getattr(obj, f.name).cpu() for f in dataclasses.fields(obj)
+        if isinstance(getattr(obj, f.name), torch.Tensor)})
+
+
+def policy_check(p):
+    """The MPC's control policy on the card at five times, across its
+    first stage interval and across the first touchdown's impact slot,
+    against the same policy computed from a host copy of its solution,
+    grid and gains (float64, 1e-12 of each output's max-abs), with the
+    control input of a seeded measurement. Returns the worst error
+    ratio."""
+    mpc = p.mpc
+    ts = mpc.grid.t.cpu().numpy()
+    imp = [i for i in range(len(ts) - 1) if float(mpc.grid.is_impact[i]) > 0
+           and float(mpc.grid.imp_mask[i].sum()) > 0]
+    check(bool(imp), "policy: no touchdown in the horizon")
+    times = [ts[0], ts[0] + 0.3 * (ts[1] - ts[0]), ts[0] + 0.8 * (ts[1] - ts[0]),
+             ts[imp[0]] - 1e-3, ts[imp[0]] + 1e-3]
+    grid, sol, gains = _cpu(mpc.grid), _cpu(mpc.sol), _cpu(mpc.lqr_policy)
+    rng = np.random.default_rng(9)
+    worst = 0.0
+    for t in times:
+        got = mpc.get_control_policy(t)
+        want = ControlPolicy.from_solution(p.model, grid, sol, gains, t)
+        meas = torch.as_tensor(rng.standard_normal((2, p.model.dimu)),
+                               dtype=torch.float64)
+        pairs = [(getattr(got, n).cpu(), getattr(want, n))
+                 for n in ("tauJ", "qJ", "dqJ", "Kp", "Kd")]
+        pairs.append((got.control_input(meas[0].to(got.tauJ.device),
+                                        meas[1].to(got.tauJ.device)).cpu(),
+                      want.control_input(meas[0], meas[1])))
+        for g, w in pairs:
+            worst = max(worst, float((g - w).abs().max())
+                        / max(1.0, float(w.abs().max())))
+    print(f"  crawl control policy at t = "
+          + ", ".join(f"{t:.4f}" for t in times)
+          + f": card vs host copy, error / max-abs {worst:.1e} (gate 1e-12)")
+    check(worst <= 1e-12, f"crawl control policy: card vs host {worst:.3e}")
+    return worst
+
+
+def slot_errors(tag, p, sol_b, grid_b, idx):
+    """Every stage kernel against its plain version on one fleet's own
+    inputs (K6 with the problem's cost fold when its stack folds, the
+    condense kernels on the plain route's condense inputs), the error at
+    the stage slots idx (flat indices) over each output's max-abs over
+    all slots; gated at TOL. Returns {kernel: ratio}."""
+    model, contacts, costs = p.model, p.mpc.contacts, p.costs
+    dtype = sol_b.q.dtype
+    args, cost = chain_args(model, contacts, costs, sol_b, grid_b,
+                            chn.cost_fold_supported(model, costs, contacts))
+    pre = OS.stage_pre_all(model, contacts, p.mpc.limits, 1e-3, costs,
+                           sol_b, grid_b, n_imp=p.mpc.n_reserved,
+                           use_chain=False)
+    x = {k: pre[k].contiguous() for k in cd.IN_NAMES}
+    k1_in, k2_in = _k12_inputs(x)
+    p1, p2 = cd.k1_plain(*k1_in), cd.k2_plain(*k2_in)
+    k3_in = [p1[3], p1[4], p2[3].contiguous()] + [
+        x[n] for n in ("Aqq", "Aqv", "xres_q", "Fv_res", "sA", "lam2",
+                       "lmdgmm")]
+    kc_in = [x["dgdq"], x["dgdf"], x["d_cone"]]
+    names = chn._OUTS + (chn._COST_OUTS if cost else ())
+    cases = {"K6": (lambda: [chn.chain(model, contacts, *args, *cost)[n]
+                             for n in names],
+                    lambda: [chn.chain_plain(model, contacts, *args,
+                                             *cost)[n] for n in names]),
+             "K1": (lambda: cd.k1(*k1_in), lambda: p1),
+             "Kc": (lambda: cd.kc(*kc_in), lambda: cd.kc_plain(*kc_in)),
+             "K2": (lambda: cd.k2(*k2_in), lambda: p2),
+             "K3": (lambda: cd.k3(*k3_in), lambda: cd.k3_plain(*k3_in))}
+    out = {}
+    for key, (kern, plain) in cases.items():
+        worst = 0.0
+        for k, w in zip(kern(), plain()):
+            scale = max(float(w.abs().max()), 1e-30)
+            worst = max(worst, float((k[idx] - w[idx]).abs().max()) / scale)
+        out[key] = worst
+    print(f"  {tag} {str(dtype):14s} kernel vs plain at the {len(idx)} "
+          "flight slots, error / each output's max-abs: "
+          + ", ".join(f"{k} {v:.1e}" for k, v in out.items())
+          + f" (gate {TOL[dtype]:.0e})")
+    check(all(v <= TOL[dtype] for v in out.values()),
+          f"{tag} {dtype}: kernel vs plain at the flight slots past "
+          f"{TOL[dtype]:.0e}: {out}")
+    return out
+
+
+def gait_gates(tag, f32, f64, parts_fn):
+    """The gates of a gait fleet, as the trot's: one MPC step of the
+    float32 fleet through the kernels (`_run_path`: launch counts, finite
+    KKT; the agreement with the plain step printed; ms per MPC step, the
+    device idle share), the float64 fleet's step through the kernels
+    against the plain versions (1e-8) and the float32 drift gate at TROT_K
+    (`trot_gate`). f32, f64: (mk, grid, sol0, q0s, v0s). Returns the
+    result with the launch counts."""
+    t0 = time.perf_counter()
+    launches, out, (out_k, out_p) = _run_path(
+        tag, *f32, parts_fn, strict=False, reps=1)
+    t1 = time.perf_counter()
+    gate = trot_gate(tag, f32, f64, out_k, out_p)
+    out.update(launches=launches, f64_agreement=gate["f64_agreement"],
+               drift_ratio=gate["drift_ratio"], drift_factor=TROT_K,
+               seconds={"path": t1 - t0, "gate": time.perf_counter() - t1})
+    print(f"{tag} gates: " + json.dumps({k: out[k] for k in (
+        "launches", "f64_agreement", "drift_ratio")}))
+    return out
+
+
+def phase_gaits(dev):
+    """The remaining periodic gaits through the kernels. (a) The A1 crawl
+    on terrain (K6's four-feet instance on the A1 tree, without the cost
+    fold, its task rows feeding the stack): warmed in float64 at B = 1
+    (`init`, closed-loop updates to CRAWL_T), its control policy on the
+    card against a host copy; then fleets of B scenarios around the warm
+    state: `gait_gates`, with the host time by part. (b) The ANYmal pace
+    (no fold) and (c) flying trot (the fold; a flight with no contact
+    active, then its touchdown, in the horizon): `gait_gates` on fleets
+    built as the trot's; the flying trot's kernels against their plain
+    versions at the flight slots (`slot_errors`, float64 and float32)."""
+    f32_, f64_ = torch.float32, torch.float64
+    t_phase = time.perf_counter()
+    out = {}
+    # (a) the A1 crawl
+    t0 = time.perf_counter()
+    p = problems.a1_crawl(N=N, dtype=f64_, device=dev)
+    t, q, v = problems.warm_start(p, CRAWL_T, CRAWL_DT,
+                                  init_iters=CRAWL_INIT)
+    mpc = p.mpc
+    kkt_w = mpc.kkt_error(t, q, v)
+    warm_s = time.perf_counter() - t0
+    cm0 = mpc.grid.contact_mask[0].tolist()
+    n_td = int((mpc.grid.imp_mask.sum(dim=-1) > 0).sum())
+    print(f"  crawl warm start: t = {t:.3f} s in steps of {CRAWL_DT} s after "
+          f"{CRAWL_INIT} init updates (the MPC's last plan at "
+          f"{float(mpc.grid.t[0]):.3f} s), kkt {kkt_w:.3e}, {warm_s:.1f} s; "
+          f"contacts in the plan's first stage {cm0}, touchdowns in its "
+          f"horizon {n_td}")
+    check(np.isfinite(kkt_w), "crawl warm start: KKT not finite")
+    check(sum(cm0) == 3 and n_td >= 1, "crawl warm start: not one foot in "
+          f"swing with a touchdown ahead: {cm0}, {n_td}")
+    check(not chn.cost_fold_supported(p.model, mpc._costs, mpc.contacts),
+          "crawl: its stack should not fold")
+    out["crawl_policy_err"] = policy_check(p)
+    model, (contacts, limits, costs, grid, _), sol0, q0s, v0s, mk = \
+        warm_fleet(p, q, v, f32_, dev, scale=GAIT_SCALE)
+    _, (_, _, _, grid64, _), sol64, q64, v64, mk64 = warm_fleet(
+        p, q, v, f64_, dev, scale=GAIT_SCALE)
+    sol_b, grid_b, q_b, v_b, _ = OS._fleet(sol0, grid, q0s, v0s)
+    out["crawl"] = gait_gates(
+        "crawl", (mk, grid, sol0, q0s, v0s), (mk64, grid64, sol64, q64, v64),
+        lambda: _parts(model, contacts, limits, costs, sol_b, grid_b, q_b,
+                       v_b, mpc.n_reserved, True, False, reps=1))
+    out["crawl"].update(warm_start_s=warm_s, warm_start_kkt=kkt_w,
+                        stage_slots=B * (grid.n_slots - 1))
+    seconds = {"crawl warm start": warm_s,
+               "crawl": time.perf_counter() - t0 - warm_s}
+    # (b) the pace, (c) the flying trot
+    for name in ("pace", "flying_trot"):
+        t0 = time.perf_counter()
+        make = gait_problem(name)
+        p32, mk, (sol0, q0s, v0s) = trot_fleet(f32_, dev, make=make)
+        p64, mk64, (sol64, q64, v64) = trot_fleet(f64_, dev, make=make)
+        folds = chn.cost_fold_supported(p32.model, p32.costs,
+                                        p32.mpc.contacts)
+        check(folds == (name == "flying_trot"), f"{name}: cost fold {folds}")
+        res = {}
+        if name == "flying_trot":
+            flight = flight_slots(p32.grid)
+            print(f"  flying trot: {len(flight)} flight slots per scenario "
+                  f"(no contact active) at t = "
+                  + ", ".join(f"{float(p32.grid.t[i]):.3f}" for i in flight))
+            check(len(flight) >= 1, "flying trot: no flight slot in the "
+                  "horizon")
+            S1 = p32.grid.n_slots - 1
+            idx = torch.tensor([b * S1 + i for b in range(B)
+                                for i in flight], device=dev)
+            for pp, s_, q_, v_ in ((p64, sol64, q64, v64),
+                                   (p32, sol0, q0s, v0s)):
+                sb, gb, _, _, _ = OS._fleet(s_, pp.grid, q_, v_)
+                res[str(pp.model.dtype)] = slot_errors(
+                    "flying trot", pp, sb, gb, idx)
+            res["flight_slots"] = len(flight)
+        out[name] = gait_gates(name, (mk, p32.grid, sol0, q0s, v0s),
+                               (mk64, p64.grid, sol64, q64, v64), dict)
+        out[name].update(flight_errors=res, cost_fold=folds,
+                         stage_slots=B * (p32.grid.n_slots - 1))
+        seconds[name] = time.perf_counter() - t0
+    out["seconds"] = dict(seconds, phase=time.perf_counter() - t_phase)
+    print("  gaits seconds: " + ", ".join(f"{k} {v:.1f}"
+                                          for k, v in out["seconds"].items()))
+    print("gaits: " + json.dumps(out))
+    return out
+
+
 def _summary(out):
     """Each kernel's device time (ms) and ms per MPC step from one run's
     output, and the kernels phase's kernel-vs-plain max abs errors
@@ -1818,7 +2110,8 @@ def _summary(out):
         if line.startswith('{"kernels"'):
             for r in json.loads(line)["kernels"]:
                 row[r["name"]] = r["ms"]
-        for tag in ("slice", "trot", "walk"):
+        for tag in ("slice", "trot", "walk", "crawl", "pace",
+                    "flying_trot"):
             if line.startswith(tag + ": {"):
                 row[tag + " ms/step"] = json.loads(
                     line[len(tag) + 2:])["ms_per_mpc_step"]
@@ -1877,9 +2170,21 @@ def main(phases=ALL_PHASES):
           f"cuda {torch.version.cuda}")
     dev = torch.device("cuda")
     t0 = time.perf_counter()
+    seconds = {}
+    lap = [t0]
+
+    def done(phase):
+        """The seconds since the last phase ended."""
+        now = time.perf_counter()
+        seconds[phase] = now - lap[0]
+        lap[0] = now
+
     if "build" in phases:
         phase_build()
+        done("build")
     recs = phase_kernels(dev) if "kernels" in phases else {}
+    done("kernels")
+
     def note(launches, pairs, run):
         """Each record's launches: its kernel's count over the run named,
         counted from 0 just before it."""
@@ -1894,23 +2199,39 @@ def main(phases=ALL_PHASES):
         launches, _, _ = phase_slice(dev)
         note(launches, (("K5 nf0", "K5"), ("K6 nofold", "K6")),
              "standing: " + step)
+        done("slice")
     if "trot" in phases:
         launches, _ = phase_trot(dev)
         note(launches, [(k, k) for k in COUNTERS], "trot: " + step)
+        done("trot")
     if "readings" in phases:
         phase_readings(dev)
+        done("readings")
     if "golden" in phases:
         phase_golden(dev)
+        done("golden")
     if "walk" in phases:
         launches, out = phase_walk(dev)
         note(launches, (("K6s", "K6"), ("Kc34", "Kc"), ("K1w", "K1"),
                         ("K2w", "K2"), ("K3w", "K3")), "walk: " + step)
         note(out["biped_standing_launches"], (("K6s nofold", "K6"),),
              "biped standing OCP (N 4, one scenario, float64): 12 updates")
+        done("walk")
     if "solve" in phases:
         phase_solve(dev)
+        done("solve")
     if "unconstr" in phases:
         phase_unconstr(dev)
+        done("unconstr")
+    if "gaits" in phases:
+        out = phase_gaits(dev)
+        note(out["crawl"]["launches"], (("K6 a1 nofold", "K6"),),
+             "a1 crawl: " + step)
+        note(out["flying_trot"]["launches"], (("K1ft", "K1"), ("Kcft", "Kc")),
+             "flying trot: " + step)
+        done("gaits")
+    print("seconds by phase: " + ", ".join(f"{k} {v:.1f}"
+                                           for k, v in seconds.items()))
     print(f"total {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": list(recs.values())}))
     print(card)

@@ -18,11 +18,13 @@ import numpy as np
 import torch
 
 from .constraints.joint_limits import JointLimits
-from .core.structs import LQRData
+from .core.structs import LQRData, LQRPolicy
 from .costs.config_cost import ConfigurationSpaceCost
 from .costs.task_cost import BaseRotationCost, MultiFrameTaskCost
 from .device import resolve
-from .mpc.refs import StepBaseRotRef, StepCoMRef, StepSwingFootRef
+from .mpc.control_policy import ControlPolicy
+from .mpc.refs import (StepBaseRotRef, StepCoMRef, StepConfigurationRef,
+                       StepSwingFootRef)
 from .models.contacts import ContactModel
 from .models.robot import RobotModel
 from .parnmpc.solver import ParNMPCSolution
@@ -39,19 +41,13 @@ def _tensor(x, dtype, device):
                            device=device)
 
 
-def _build(cls, fields: dict, dtype, device, drop_none=(), nested=None):
-    """cls(**fields) with array fields converted. Fields named in
-    `drop_none` are accepted only when None (not ported yet); `nested`
-    maps a field to the converter of its own field dict."""
+def _build(cls, fields: dict, dtype, device, nested=None):
+    """cls(**fields) with array fields converted; `nested` maps a field to
+    the converter of its own field dict."""
     dev = resolve(device)
     names = {f.name for f in dataclasses.fields(cls)}
     kw = {}
     for name, val in fields.items():
-        if name in drop_none:
-            if val is not None:
-                raise NotImplementedError(f"{cls.__name__}.{name} is not "
-                                          "ported yet")
-            continue
         if name not in names:
             raise ValueError(f"{cls.__name__} has no field {name!r}")
         if nested and name in nested:
@@ -95,8 +91,18 @@ def joint_limits(fields: dict, dtype=torch.float64,
 
 def config_cost(fields: dict, dtype=torch.float64,
                 device=None) -> ConfigurationSpaceCost:
+    """fields["q_ref_fn"] (optional): None, or the field dict of a
+    StepConfigurationRef."""
     return _build(ConfigurationSpaceCost, fields, dtype, device,
-                  drop_none=("q_ref_fn",))
+                  nested={"q_ref_fn": _optional(step_configuration_ref)})
+
+
+def _optional(convert_fn):
+    """convert_fn for a field that may be None."""
+    def fn(val, dtype, device):
+        return None if val is None else convert_fn(val, dtype=dtype,
+                                                   device=device)
+    return fn
 
 
 def grid_data(fields: dict, dtype=torch.float64, device=None) -> GridData:
@@ -121,6 +127,25 @@ def lqr_data(fields: dict, dtype=torch.float64, device=None) -> LQRData:
     return _build(LQRData, fields, dtype, device)
 
 
+def lqr_policy(fields: dict, dtype=torch.float64,
+               device=None) -> LQRPolicy:
+    """The JAX package's policy also holds the pieces of its multi-RHS
+    sweeps (GiPhiuT, S_chol), which this package does not keep: they are
+    left out."""
+    return _build(LQRPolicy, {k: v for k, v in fields.items()
+                              if k not in ("GiPhiuT", "S_chol")},
+                  dtype, device)
+
+
+def control_policy(fields: dict, dtype=torch.float64,
+                   device=None) -> ControlPolicy:
+    """fields: t (a float) and the five arrays of a ControlPolicy."""
+    dev = resolve(device)
+    return ControlPolicy(**{
+        k: float(v) if k == "t" else _tensor(v, dtype, dev)
+        for k, v in fields.items()})
+
+
 def step_swing_foot_ref(fields: dict, dtype=torch.float64,
                         device=None) -> StepSwingFootRef:
     return _build(StepSwingFootRef, fields, dtype, device)
@@ -134,6 +159,11 @@ def step_com_ref(fields: dict, dtype=torch.float64,
 def step_base_rot_ref(fields: dict, dtype=torch.float64,
                       device=None) -> StepBaseRotRef:
     return _build(StepBaseRotRef, fields, dtype, device)
+
+
+def step_configuration_ref(fields: dict, dtype=torch.float64,
+                           device=None) -> StepConfigurationRef:
+    return _build(StepConfigurationRef, fields, dtype, device)
 
 
 def base_rotation_cost(fields: dict, dtype=torch.float64,

@@ -2,9 +2,13 @@
 //
 // Replaces robotoc_tpu ops/pallas_chain.py:_chain_kernel (launch :1110,
 // entry make_chain :1121 / get_chain :1186): its point-contact branch for
-// ANYmal's four feet and its surface-contact branch for the iCub soles.
-// Built for the trees of csrc/chain_stage.cuh (ChainTree): (NV, NJ, NC,
-// contact type) = (18, 13, 4, point), ANYmal; (18, 13, 2, surface), the
+// four feet (ANYmal's or the A1's) and its surface-contact branch for the
+// iCub soles. Built for the trees of csrc/chain_stage.cuh (ChainTree):
+// (NV, NJ, NC, contact type) = (18, 13, 4, point), ANYmal and the A1 (one
+// instance: both are four chains of three joints on the base; the A1's
+// feet sit on the chains in another order, contact_chain (1, 3, 0, 2)
+// against ANYmal's (0, 2, 1, 3), which the layout table carries, and its
+// link offsets are model constants); (18, 13, 2, surface), the
 // iCub lower half; (35, 30, 2, surface), the full iCub, whose torso
 // carries both arms (checked against the plain version only: no MPC path
 // of the port runs it; csrc/chain_icub.cu, a library of its own so that

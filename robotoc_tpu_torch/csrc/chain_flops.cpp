@@ -138,8 +138,8 @@ int count_tree(int nv, int with_cost, int nc, int ctype, const double* consts,
 extern "C" {
 
 // Operations of K6 over S stages for the trees of csrc/chain_stage.cuh
-// (nv 18: ANYmal's 4 point feet, nc 4, ctype 3, or the iCub lower half's 2
-// soles, nc 2, ctype 6; nv 35: the full iCub's 2 soles), inputs in the
+// (nv 18: the 4 point feet of ANYmal or the A1, nc 4, ctype 3, or the iCub
+// lower half's 2 soles, nc 2, ctype 6; nv 35: the full iCub's 2 soles), inputs in the
 // order of ops/chain.py, float64 on the host: out[0] value operations,
 // out[1] tangent operations. Returns 0, -1 for another tree, -2 for a
 // chain layout past the tree's workspace.

@@ -1,6 +1,6 @@
 // The chain kernel K6's launcher, shared by the libraries that
-// instantiate it (csrc/chain.cu: ANYmal and the iCub lower half;
-// csrc/chain_icub.cu: the full iCub, built by its own nvcc beside it):
+// instantiate it (csrc/chain.cu: ANYmal or the A1, and the iCub lower
+// half; csrc/chain_icub.cu: the full iCub, built by its own nvcc beside it):
 // a warp per stage, kWarps stages a block, each warp's workspace its own
 // slice of dynamic shared memory (csrc/chain_stage.cuh).
 #pragma once

@@ -19,8 +19,8 @@
 // layout is read from the model at run time (ops/chain.chain_layout, the
 // table ChainModel reads): each chain's first joint, length, parent joint,
 // level (chains between it and the base) and descendant chains, which
-// follow it in order. ANYmal is four chains of 3 on the base, the iCub
-// lower half two of 6; the full iCub adds a torso chain whose last joint
+// follow it in order. ANYmal and the A1 are four chains of 3 on the base,
+// the iCub lower half two of 6; the full iCub adds a torso chain whose last joint
 // carries both arms, at level 1. TREE (ChainTree below) sets the
 // workspace's capacities: the longest chain and the number of levels.
 //
@@ -224,7 +224,8 @@ struct ChainTree {
   static constexpr int NV = NV_, NJ = NJ_, NC = NC_, CT = CT_;
   static constexpr int MAXLEN = MAXLEN_, NLEV = NLEV_;
 };
-using AnymalFeet = ChainTree<18, 13, 4, kPoint, 3, 1>;     // four legs
+// four legs: ANYmal and the A1
+using AnymalFeet = ChainTree<18, 13, 4, kPoint, 3, 1>;
 using IcubLegSoles = ChainTree<18, 13, 2, kSurface, 6, 1>;  // lower half
 using IcubSoles = ChainTree<35, 30, 2, kSurface, 7, 2>;     // full iCub
 

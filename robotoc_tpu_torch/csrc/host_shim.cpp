@@ -223,8 +223,8 @@ int rtt_host_riccati_bwd(int nf, int Bn, int N, const double* A,
   return 0;
 }
 
-// K6 on S stages for the trees of csrc/chain_stage.cuh (nv 18: ANYmal's 4
-// point feet, nc 4, ctype 3, or the iCub lower half's 2 soles, nc 2, ctype
+// K6 on S stages for the trees of csrc/chain_stage.cuh (nv 18: the 4 point
+// feet of ANYmal or the A1, nc 4, ctype 3, or the iCub lower half's 2 soles, nc 2, ctype
 // 6; nv 35: the full iCub's 2 soles); ins/outs in the order of
 // ops/chain.py. Returns 0, -1 for another tree, -2 for a chain layout
 // past the tree's workspace.

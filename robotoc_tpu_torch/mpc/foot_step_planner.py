@@ -1,20 +1,58 @@
-"""Host-side gait planner: the cyclic foot-step planner (counterpart of
-robotoc_tpu/mpc/foot_step_planner.py; the Raibert-heuristic mode is not
-ported).
+"""Host-side gait planner: the cyclic foot-step planner and its
+Raibert-heuristic mode (counterpart of robotoc_tpu/mpc/foot_step_planner.py).
 
 numpy on the host, once per MPC update; only the measured kinematics (feet
 and CoM at the current configuration) run on the model's device. A gait is
 a cycle of swing sets (which feet are airborne at step s). Feet order
-LF, LH, RF, RH: trot cycle = ((LH, RF), (LF, RH)) = ((1, 2), (0, 3)).
+LF, LH, RF, RH: trot cycle = ((LH, RF), (LF, RH)) = ((1, 2), (0, 3)),
+pace ((RF, RH), (LF, LH)), crawl ((RH,), (RF,), (LH,), (LF,)). In the
+Raibert mode the step length follows the measured base velocity, averaged
+over a trailing window, and the commanded one.
 """
 from __future__ import annotations
 
+from collections import deque
 from typing import Sequence, Tuple
 
 import numpy as np
 import torch
 
 from ..models import robot as rm
+
+
+class MovingWindowFilter:
+    """Mean of the values pushed within a trailing time window."""
+
+    def __init__(self, window: float):
+        self.window = window
+        self.data = deque()
+
+    def clear(self):
+        self.data.clear()
+
+    def push(self, t, value):
+        self.data.append((t, np.asarray(value, float)))
+        while self.data and self.data[0][0] < t - self.window:
+            self.data.popleft()
+
+    def average(self):
+        if not self.data:
+            return 0.0
+        return np.mean([v for _, v in self.data], axis=0)
+
+
+class RaibertHeuristic:
+    """Step length 0.5 period v_avg + gain (v_avg - v_cmd) in x and y."""
+
+    def __init__(self, period: float, gain: float):
+        self.period = period
+        self.gain = gain
+
+    def step_length(self, vcom_avg, vcom_cmd, yaw_rate_cmd):
+        v = np.asarray(vcom_avg, float)
+        cmd = np.asarray(vcom_cmd, float)
+        xy = 0.5 * self.period * v + self.gain * (v - cmd)
+        return np.array([xy[0], xy[1], 0.0])
 
 
 class GaitFootStepPlanner:
@@ -35,6 +73,11 @@ class GaitFootStepPlanner:
         self.R_yaw = np.eye(3)
         self.enable_stance_phase = False
         self.has_flight_phase = False
+        self.enable_raibert = False
+        self.raibert = None
+        self.vcom_filter = None
+        self.vcom_cmd = np.zeros(3)
+        self.yaw_rate_cmd = 0.0
         self.current_step = 0
 
     def _fk_feet_com(self, q):
@@ -54,6 +97,21 @@ class GaitFootStepPlanner:
         cy, sy = np.cos(step_yaw), np.sin(step_yaw)
         self.R_yaw = np.array([[cy, -sy, 0], [sy, cy, 0], [0, 0, 1.0]])
         self.enable_stance_phase = enable_stance_phase
+        self.enable_raibert = False
+
+    def set_raibert_gait_pattern(self, vcom_cmd, yaw_rate_cmd, period,
+                                 gain):
+        """Step length from the Raibert heuristic at every plan; period:
+        the full gait period (every foot stepped once); the step yaw from
+        the commanded yaw rate."""
+        self.raibert = RaibertHeuristic(period, gain)
+        self.vcom_filter = MovingWindowFilter(0.1 * period)
+        self.vcom_cmd = np.asarray(vcom_cmd, float)
+        self.yaw_rate_cmd = yaw_rate_cmd
+        step_yaw = yaw_rate_cmd * period / len(self.cycle)
+        cy, sy = np.cos(step_yaw), np.sin(step_yaw)
+        self.R_yaw = np.array([[cy, -sy, 0], [sy, cy, 0], [0, 0, 1.0]])
+        self.enable_raibert = True
 
     def swing_set(self, s: int) -> Tuple[int, ...]:
         return self.cycle[(s - 1) % len(self.cycle)]
@@ -67,11 +125,20 @@ class GaitFootStepPlanner:
                                   for i in range(self.nc)]
         self.current_step = 0
         self._R = R
+        if self.vcom_filter is not None:
+            self.vcom_filter.clear()
 
     def plan(self, t, q, v, contact_active, planning_steps):
         """(positions (K+1, nc, 3), com (K+1, 3), R (K+1, 3, 3)); entry 0 is
         the current stance, entry j the placements after j more steps."""
         q = np.asarray(q, float)
+        if self.enable_raibert:
+            self.vcom_filter.push(t, np.asarray(v[:3], float)[:2])
+            vavg = np.atleast_1d(self.vcom_filter.average())
+            if vavg.size < 2:
+                vavg = np.zeros(2)
+            self.step_length = self.raibert.step_length(
+                vavg[:2], self.vcom_cmd[:2], self.yaw_rate_cmd)
         feet, _ = self._fk_feet_com(q)
         pos = [feet[i] for i in range(self.nc)]
         R = getattr(self, "_R", _yaw_projection(_quat_to_R(q[3:7])))
@@ -141,8 +208,9 @@ class GaitFootStepPlanner:
                 pass
             elif step0 == 0 and step == 1:
                 R = self.R_yaw @ R
-                com = com + (self.com_advance * self.first_step_factor
-                             * (R @ self.step_length))
+                adv = self.com_advance * (
+                    1.0 if self.enable_raibert else self.first_step_factor)
+                com = com + adv * (R @ self.step_length)
                 for i in self.swing_set(step):
                     pos[i] = self._snap(com + R @ self.com_to_foot_local[i])
             else:
@@ -173,6 +241,13 @@ class TrotFootStepPlanner(GaitFootStepPlanner):
     def __init__(self, model, feet_frames, terrain=None):
         super().__init__(model, feet_frames,
                          cycle=(self.PAIR_B, self.PAIR_A), terrain=terrain)
+
+    def set_raibert_gait_pattern(self, vcom_cmd, yaw_rate_cmd, swing_time,
+                                 stance_time, gain):
+        period = 2.0 * (swing_time + stance_time)
+        super().set_raibert_gait_pattern(vcom_cmd, yaw_rate_cmd, period,
+                                         gain)
+        self.enable_stance_phase = stance_time > 0.0
 
 
 def _quat_to_R(quat_xyzw):

@@ -1,12 +1,23 @@
-"""Periodic-gait whole-body MPC (counterpart of robotoc_tpu/mpc/gait_mpc.py,
-the parts the quadruped trot and the biped walk run).
+"""Periodic-gait whole-body MPC (counterpart of robotoc_tpu/mpc/gait_mpc.py).
 
 A gait is a cycle of swing sets plus (swing_time, stance_time |
-flying_time) timing. Each control update re-plans the steps on the host,
-bakes the sliding contact schedule into a GridData and the step-indexed
-reference tensors into the cost stack (values change, shapes never), and
-runs Newton updates of the contact OCP (solver/ocp_solver.py) with impact
-slots and switching constraints.
+flying_time) timing:
+
+    trot         cycle = ((LH, RF), (LF, RH))          (mpc_trot.MPCTrot)
+    pace         cycle = ((RF, RH), (LF, LH))          MPCPace
+    crawl        cycle = ((RH,), (RF,), (LH,), (LF,))  MPCCrawl
+    flying trot  cycle = ((LH, RF), (LF, RH)), flying_time > 0: every foot
+                 airborne between steps, the touchdown an impact
+    biped walk   cycle = ((r_sole,), (l_sole,))        MPCBipedWalk
+
+Each control update re-plans the steps on the host, bakes the sliding
+contact schedule into a GridData and the step-indexed reference tensors
+into the cost stack (values change, shapes never), and runs Newton updates
+of the contact OCP (solver/ocp_solver.py) with impact slots and switching
+constraints. Pace and crawl track the base rotation through a second
+ConfigurationSpaceCost whose time-varying reference
+(refs.StepConfigurationRef) slerps the base quaternion between the steps;
+the others through BaseRotationCost.
 """
 from __future__ import annotations
 
@@ -24,8 +35,10 @@ from ..models import contacts as ct
 from ..models import robot as rm
 from ..planner.contact_sequence import ContactSchedule, discretize
 from ..solver.ocp_solver import OCPSolver, SolverOptions, align_solution
+from .control_policy import ControlPolicy
 from .foot_step_planner import GaitFootStepPlanner
-from .refs import StepBaseRotRef, StepCoMRef, StepSwingFootRef
+from .refs import (StepBaseRotRef, StepCoMRef, StepConfigurationRef,
+                   StepSwingFootRef)
 
 FEET_DEFAULT = ["LF_FOOT", "LH_FOOT", "RF_FOOT", "RH_FOOT"]
 
@@ -35,6 +48,9 @@ class PeriodicGaitMPC:
 
     #: swing sets per step within one gait cycle; override per gait
     CYCLE: Tuple[Tuple[int, ...], ...] = ((1, 2), (0, 3))
+    #: track the base rotation with a ConfigurationSpaceCost on a
+    #: time-varying StepConfigurationRef instead of BaseRotationCost
+    BASE_ROT_VIA_CONFIG_REF: bool = False
 
     def __init__(self, model: rm.RobotModel, T: float, N: int,
                  feet=None, friction_coefficient: float = 0.5,
@@ -236,13 +252,26 @@ class PeriodicGaitMPC:
         active_time = T_(self.swing_time + self.flying_time)
         com_ref = StepCoMRef(com_steps=T_(com_steps), t_start=T_(t_start),
                              swing_time=active_time, valid=T_(valid))
-        base_rot_cost = BaseRotationCost(
-            weight=self.base_rot_weight,
-            weight_terminal=self.base_rot_weight,
-            weight_impact=self.base_rot_weight,
-            ref=StepBaseRotRef(quat_steps=T_(quat_steps),
-                               t_start=T_(t_start), swing_time=active_time,
-                               valid=T_(valid)))
+        if self.BASE_ROT_VIA_CONFIG_REF:
+            # the base-rotation weights on the base-rotation tangent rows of
+            # a second configuration cost with a slerped base quaternion
+            w_rot = torch.cat([torch.zeros(3, **kw), self.base_rot_weight,
+                               torch.zeros(m.nv - 6, **kw)])
+            base_rot_cost = make_config_cost(
+                m, q_ref_fn=StepConfigurationRef(
+                    q=self.config_cost.q_ref, quat_steps=T_(quat_steps),
+                    t_start=T_(t_start), swing_time=active_time,
+                    valid=T_(valid)),
+                q_weight=w_rot, q_weight_terminal=w_rot,
+                q_weight_impact=w_rot)
+        else:
+            base_rot_cost = BaseRotationCost(
+                weight=self.base_rot_weight,
+                weight_terminal=self.base_rot_weight,
+                weight_impact=self.base_rot_weight,
+                ref=StepBaseRotRef(quat_steps=T_(quat_steps),
+                                   t_start=T_(t_start),
+                                   swing_time=active_time, valid=T_(valid)))
         zero3 = torch.zeros(3, **kw)
         task_cost = MultiFrameTaskCost(
             frame_ids=self.contacts.frame_ids, foot_weight=self.foot_weight,
@@ -294,6 +323,40 @@ class PeriodicGaitMPC:
     def kkt_error(self, t, q, v):
         return float(self._solver.kkt_error(self.grid, q, v, self.sol,
                                             costs=self._costs))
+
+    # ------------------------------------------------------------------
+    def get_initial_control_input(self):
+        return self.sol.u[..., 0, :]
+
+    def get_control_policy(self, t: float):
+        """The interpolated PD + feedforward policy at time t."""
+        return ControlPolicy.from_solution(self.model, self.grid, self.sol,
+                                           self.lqr_policy, t)
+
+
+class MPCPace(PeriodicGaitMPC):
+    """Pace: lateral pairs, the right side (RF, RH) first."""
+    CYCLE = ((2, 3), (0, 1))
+    BASE_ROT_VIA_CONFIG_REF = True
+
+
+class MPCCrawl(PeriodicGaitMPC):
+    """Crawl: one foot at a time, in the order RH, RF, LH, LF."""
+    CYCLE = ((3,), (2,), (1,), (0,))
+    BASE_ROT_VIA_CONFIG_REF = True
+
+
+class MPCFlyingTrot(PeriodicGaitMPC):
+    """Flying trot: diagonal pairs with a flight phase (no foot in
+    contact) of flying_time between steps."""
+    CYCLE = ((1, 2), (0, 3))
+
+    def set_gait_pattern(self, planner, swing_height, swing_time,
+                         flying_time, swing_start_time):
+        super().set_gait_pattern(planner, swing_height, swing_time,
+                                 stance_time=0.0,
+                                 swing_start_time=swing_start_time,
+                                 flying_time=flying_time)
 
 
 class MPCBipedWalk(PeriodicGaitMPC):
@@ -357,3 +420,18 @@ def _yaw_quat(R):
     pure yaw)."""
     yaw = np.arctan2(R[1, 0], R[0, 0])
     return np.array([0.0, 0.0, np.sin(0.5 * yaw), np.cos(0.5 * yaw)])
+
+
+def pace_foot_step_planner(model, feet=None, first_step_factor=0.5):
+    return GaitFootStepPlanner(model, feet or FEET_DEFAULT, MPCPace.CYCLE,
+                               first_step_factor)
+
+
+def crawl_foot_step_planner(model, feet=None, first_step_factor=0.5):
+    return GaitFootStepPlanner(model, feet or FEET_DEFAULT, MPCCrawl.CYCLE,
+                               first_step_factor)
+
+
+def flying_trot_foot_step_planner(model, feet=None, first_step_factor=0.5):
+    return GaitFootStepPlanner(model, feet or FEET_DEFAULT,
+                               MPCFlyingTrot.CYCLE, first_step_factor)

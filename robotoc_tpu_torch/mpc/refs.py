@@ -103,6 +103,26 @@ class StepBaseRotRef:
 
 
 @dataclasses.dataclass
+class StepConfigurationRef:
+    """Full-configuration reference synchronised with the planner's steps:
+    the nominal configuration q with its base quaternion q[3:7] slerped
+    between the per-step yaw rotations during each swing window, as
+    StepBaseRotRef slerps it. A ConfigurationSpaceCost's q_ref_fn; returns
+    t.shape + (nq,)."""
+    q: torch.Tensor           # (nq,) nominal configuration
+    quat_steps: torch.Tensor  # (K+1, 4) base quaternion after k steps
+    t_start: torch.Tensor     # (K,) swing start times (sorted)
+    swing_time: torch.Tensor  # scalar
+    valid: torch.Tensor       # (K,)
+
+    def __call__(self, t):
+        quat, _ = StepBaseRotRef(self.quat_steps, self.t_start,
+                                 self.swing_time, self.valid)(t)
+        q = self.q.expand(t.shape + self.q.shape)
+        return torch.cat([q[..., :3], quat, q[..., 7:]], dim=-1)
+
+
+@dataclasses.dataclass
 class StepCoMRef:
     """CoM reference: lerp between the planner's step CoMs during each
     swing window, hold otherwise; returns (pos (..., 3), active)."""

@@ -20,7 +20,9 @@ Inputs and outputs are batch-first (S, ...), S = B * (stages per
 scenario) flattened, with the JAX kernel's names and layouts (_OUTS,
 _COST_OUTS). `chain` runs the plain version for CPU tensors and launches
 the kernel for CUDA tensors, or raises; `chain.launches` counts launches.
-The contact stack is uniform: all point contacts (ANYmal's feet) or all
+The contact stack is uniform: all point contacts (the feet of ANYmal or of
+the A1, one instance: their trees differ only in the chain layout's
+contact-to-chain map and in the constants the kernel reads) or all
 surface contacts (the iCub soles: SE(3)-log Baumgarte rows against R_ref,
 17-row wrench cones on the sole rectangle); a mixed stack raises
 NotImplementedError.
@@ -53,7 +55,7 @@ N_COST_IN = 14
 # (nv, nj, nc, contact type) the CUDA library is instantiated for
 # (csrc/chain_stage.cuh, ChainTree, which also sets the capacities of each
 # tree's chain layout: the launch refuses a layout past them)
-KERNEL_DIMS = ((18, 13, 4, ct.POINT),      # ANYmal, four feet
+KERNEL_DIMS = ((18, 13, 4, ct.POINT),      # ANYmal or the A1, four feet
                (18, 13, 2, ct.SURFACE),    # iCub lower half, soles
                (35, 30, 2, ct.SURFACE))    # full iCub, soles
 # the library (csrc/<name>.cu) of each instantiation; "chain" otherwise
@@ -169,12 +171,15 @@ def _above(up, c, d):
 
 def cost_fold_supported(model, costs, contacts) -> bool:
     """True when `costs` is exactly the gait stack the kernel quadratizes:
-    (ConfigurationSpaceCost, BaseRotationCost, MultiFrameTaskCost over the
-    contact frames) on a floating-base model."""
+    (ConfigurationSpaceCost with a constant q_ref, BaseRotationCost,
+    MultiFrameTaskCost over the contact frames) on a floating-base model.
+    A time-varying reference (q_ref_fn) is not folded: the kernel reads
+    one q_ref for every stage."""
     if not model.floating_base or len(costs) != 3:
         return False
     cfg, br, task = costs
     return (isinstance(cfg, cc.ConfigurationSpaceCost)
+            and cfg.q_ref_fn is None
             and isinstance(br, BaseRotationCost)
             and isinstance(task, MultiFrameTaskCost)
             and tuple(task.frame_ids) == tuple(contacts.frame_ids))

@@ -16,9 +16,13 @@ tangent space by seeded noise.
 contacts (the setup of tests/test_biped.py). `icub_walk` builds the
 iCub lower-half biped walk MPC problem (MPCBipedWalk, the JAX package's
 tools/bench_icub_walk.py): surface contacts with 17-row wrench cones,
-impact slots, switching constraints and the gait cost stack;
-`walk_warm_start` warms its iterate the way the MPC runs (standing
-`init`, then closed-loop updates to mid-gait).
+impact slots, switching constraints and the gait cost stack.
+
+`a1_crawl` builds the Unitree A1 crawl MPC on a height map (MPCCrawl,
+four point feet, the planner's placements snapped to `a1_terrain`), and
+`anymal_gait` the ANYmal pace or flying trot MPC; `warm_start` warms any
+of these gait problems the way the MPC runs (`init`, then closed-loop
+updates to mid-gait).
 
 `iiwa14_config` builds the KUKA iiwa14 configuration-space OCP that
 tests/golden/iiwa14_config_ocp.npz pins (fixed base, no contacts) with
@@ -28,6 +32,7 @@ moves its initial configuration by seeded noise for B scenarios.
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Optional
 
 import numpy as np
@@ -98,6 +103,25 @@ class GaitProblem:
     N: int
 
 
+def _gait_problem(mpc, q0, t0: float, options) -> GaitProblem:
+    """The gait MPC's problem planned at t0 from configuration q0 (numpy)
+    at rest: the planner initialised at q0, the configuration reference
+    q0, the grid, the cost stack and an OCPSolver with the MPC's impact
+    slots."""
+    m = mpc.model
+    kw = dict(dtype=m.dtype, device=m.device)
+    q = torch.as_tensor(np.asarray(q0, dtype=float), **kw)
+    v = torch.zeros(m.nv, **kw)
+    mpc.planner.init(np.asarray(q0, dtype=float))
+    mpc.config_cost = dataclasses.replace(mpc.config_cost, q_ref=q)
+    grid, costs = mpc._build_schedule_and_costs(t0, q, v)
+    solver = OS.OCPSolver(m, mpc.contacts, costs, mpc.limits, T=mpc.T,
+                          N=mpc.N, options=options,
+                          n_reserved_events=mpc.n_reserved)
+    return GaitProblem(model=m, mpc=mpc, solver=solver, grid=grid,
+                       costs=costs, q0=q, v0=v, T=mpc.T, N=mpc.N)
+
+
 def anymal_trot(N: int = 20, T: float = 0.5, dtype=torch.float64,
                 device=None, t0: float = 0.35,
                 options: OS.SolverOptions = OS.SolverOptions(
@@ -111,16 +135,73 @@ def anymal_trot(N: int = 20, T: float = 0.5, dtype=torch.float64,
     planner.set_gait_pattern(np.array([0.15, 0, 0]), 0.0)
     mpc.set_gait_pattern(planner, swing_height=0.1, swing_time=0.25,
                          stance_time=0.0, swing_start_time=0.5)
-    kw = dict(dtype=dtype, device=m.device)
-    q0 = torch.tensor(Q_STAND, **kw)
-    v0 = torch.zeros(m.nv, **kw)
-    mpc.planner.init(np.asarray(Q_STAND, dtype=float))
-    mpc.config_cost = dataclasses.replace(mpc.config_cost, q_ref=q0)
-    grid, costs = mpc._build_schedule_and_costs(t0, q0, v0)
-    solver = OS.OCPSolver(m, mpc.contacts, costs, mpc.limits, T=T, N=N,
-                          options=options, n_reserved_events=mpc.n_reserved)
-    return GaitProblem(model=m, mpc=mpc, solver=solver, grid=grid,
-                       costs=costs, q0=q0, v0=v0, T=T, N=N)
+    return _gait_problem(mpc, Q_STAND, t0, options)
+
+
+# the ANYmal gaits of examples/anymal_gait_mpc.py: (MPC class name, step
+# length, swing time, swing height, flying time); first swing at 0.5 s,
+# no stance phase
+ANYMAL_GAITS = {"pace": ("MPCPace", 0.05, 0.25, 0.08, 0.0),
+                "flying_trot": ("MPCFlyingTrot", 0.15, 0.20, 0.10, 0.06)}
+
+
+def anymal_gait(name: str, N: int = 20, T: float = 0.5,
+                dtype=torch.float64, device=None, t0: float = 0.35,
+                options: OS.SolverOptions = OS.SolverOptions(
+                    switching_constraints=True)) -> GaitProblem:
+    """The ANYmal pace ("pace": lateral pairs, step 0.05 m, swing 0.25 s,
+    height 0.08) or flying trot ("flying_trot": diagonal pairs, step 0.15
+    m, swing 0.20 s, height 0.10, a 0.06 s flight between steps) planned
+    at t0 from standing. At the default t0 = 0.35 the pace's horizon holds
+    the first lift and its touchdown, the flying trot's the first swing, a
+    flight (no contact active) and the touchdown after it."""
+    from .mpc import gait_mpc
+    cls, step, swing, height, flying = ANYMAL_GAITS[name]
+    m = load_robot("anymal", dtype=dtype, device=device)
+    mpc = getattr(gait_mpc, cls)(m, T=T, N=N, options=options)
+    planner = mpc.make_planner()
+    planner.set_gait_pattern(np.array([step, 0, 0]), 0.0)
+    if flying > 0:
+        mpc.set_gait_pattern(planner, swing_height=height, swing_time=swing,
+                             flying_time=flying, swing_start_time=0.5)
+    else:
+        mpc.set_gait_pattern(planner, swing_height=height, swing_time=swing,
+                             stance_time=0.0, swing_start_time=0.5)
+    return _gait_problem(mpc, Q_STAND, t0, options)
+
+
+A1_FEET = ("FL_foot", "RL_foot", "FR_foot", "RR_foot")
+
+
+def a1_q0() -> np.ndarray:
+    """The Unitree A1 standing (base at 0.3181 m, each leg at hip 0, thigh
+    0.67, calf -1.3)."""
+    return np.array([0, 0, 0.3181, 0, 0, 0, 1] + [0.0, 0.67, -1.3] * 4)
+
+
+def a1_terrain(x: float, y: float) -> float:
+    """The height map of the A1 crawl: rolling bumps on a gentle ramp."""
+    return 0.03 * math.sin(4.0 * x) * math.cos(3.0 * y) + 0.04 * x
+
+
+def a1_crawl(N: int = 20, T: float = 0.5, dtype=torch.float64,
+             device=None, t0: float = 0.0,
+             options: OS.SolverOptions = OS.SolverOptions(
+                 switching_constraints=True)) -> GaitProblem:
+    """The A1 crawl on terrain (MPCCrawl on the feet A1_FEET, Baumgarte
+    time 0.05): step (0.12, 0, 0), swing height 0.1, swing 0.25 s, stance
+    0.05 s, first swing at 0.5 s (one foot at a time: RR, FR, RL, FL, one
+    step every 0.3 s); the planner snaps placements to `a1_terrain`.
+    Planned at t0 from standing; `warm_start` warms it as the MPC runs."""
+    from .mpc.gait_mpc import MPCCrawl
+    m = load_robot("a1", dtype=dtype, device=device)
+    mpc = MPCCrawl(m, T=T, N=N, feet=list(A1_FEET), options=options,
+                   baumgarte_time_step=0.05)
+    planner = mpc.make_planner(terrain=a1_terrain)
+    planner.set_gait_pattern(np.array([0.12, 0.0, 0.0]), 0.0)
+    mpc.set_gait_pattern(planner, swing_height=0.1, swing_time=0.25,
+                         stance_time=0.05, swing_start_time=0.5)
+    return _gait_problem(mpc, a1_q0(), t0, options)
 
 
 @dataclasses.dataclass
@@ -231,7 +312,7 @@ def icub_walk(N: int = 25, T: float = 0.7, dtype=torch.float64,
     (0.22, 0, 0), swing height 0.1, swing time 0.7, no stance phase, first
     swing at 0.5 s. With t0 None the problem is planned at t = 0 in double
     support; with t0 it is planned at t0 from the standing configuration
-    (the caller warms the iterate, as `walk_warm_start` does)."""
+    (the caller warms the iterate, as `warm_start` does)."""
     from .mpc.gait_mpc import MPCBipedWalk
     m = load_robot("icub_lower_half", dtype=dtype, device=device)
     mpc = MPCBipedWalk(m, T=T, N=N, options=options)
@@ -240,28 +321,19 @@ def icub_walk(N: int = 25, T: float = 0.7, dtype=torch.float64,
     planner.set_gait_pattern(np.array([0.22, 0, 0]), 0.0)
     mpc.set_gait_pattern(planner, swing_height=0.1, swing_time=0.7,
                          stance_time=0.0, swing_start_time=0.5)
-    kw = dict(dtype=dtype, device=m.device)
-    q0np = icub_walk_q0(m)
-    q0 = torch.as_tensor(q0np, **kw)
-    v0 = torch.zeros(m.nv, **kw)
-    mpc.planner.init(q0np)
-    mpc.config_cost = dataclasses.replace(mpc.config_cost, q_ref=q0)
-    grid, costs = mpc._build_schedule_and_costs(
-        0.0 if t0 is None else t0, q0, v0)
-    solver = OS.OCPSolver(m, mpc.contacts, costs, mpc.limits, T=T, N=N,
-                          options=options, n_reserved_events=mpc.n_reserved)
-    return GaitProblem(model=m, mpc=mpc, solver=solver, grid=grid,
-                       costs=costs, q0=q0, v0=v0, T=T, N=N)
+    return _gait_problem(mpc, icub_walk_q0(m), 0.0 if t0 is None else t0,
+                         options)
 
 
-def walk_warm_start(p: GaitProblem, t_target: float, control_dt: float):
-    """Warm the walk's iterate the way the MPC runs: `init` at standing
-    double support (40 updates), then closed-loop MPC updates (two each)
-    every control_dt up to t_target, the state moved by the plan's first
-    velocity and acceleration. Returns (t, q, v) reached; p.mpc then holds
-    the grid, cost stack and iterate at t."""
+def warm_start(p: GaitProblem, t_target: float, control_dt: float,
+               init_iters: int = 40):
+    """Warm a gait problem's iterate the way the MPC runs: `init` at t = 0
+    from standing (init_iters updates), then closed-loop MPC updates (two
+    each) every control_dt up to t_target, the state moved by the plan's
+    first velocity and acceleration. Returns (t, q, v) reached; p.mpc then
+    holds the grid, cost stack and iterate at t."""
     mpc, m = p.mpc, p.model
-    mpc.init(0.0, p.q0, p.v0, num_iters=40)
+    mpc.init(0.0, p.q0, p.v0, num_iters=init_iters)
     t, q, v = 0.0, p.q0, p.v0
     while t < t_target - 1e-9:
         mpc.update_solution(t, control_dt, q, v, max_iter=2)

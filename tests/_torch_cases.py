@@ -63,6 +63,14 @@ def jax_fleet(fn, sol, *per_scenario):
     return jax.tree.map(lambda *xs: np.stack(xs), *outs)
 
 
+def jit_unoptimised(fn):
+    """fn jitted with XLA's backend optimisation off: the same operations
+    in the same order, a quarter less compile time for a one-off reference
+    such as a whole update (its results agree with the optimised build's
+    to the last digits the tests read)."""
+    return jax.jit(fn, compiler_options={"xla_backend_optimization_level": 0})
+
+
 def jax_init_solution(solver, grid, q, v):
     """A JAX OCPSolver's warm start, jitted: one compile in place of the
     eager dispatch of every op (the same values, a tenth of the time)."""
@@ -204,18 +212,80 @@ def jax_walk(N=6, dtype=jnp.float64, t0=0.62):
                 grid=grid, costs=costs, q0=q0, v0=v0)
 
 
+A1_FEET = ["FL_foot", "RL_foot", "FR_foot", "RR_foot"]
+A1_Q0 = [0, 0, 0.3181, 0, 0, 0, 1] + [0.0, 0.67, -1.3] * 4
+
+
+def a1_terrain(x, y):
+    """The height map of examples/a1_crawl_terrain_mpc.py, as floats."""
+    return 0.03 * np.sin(4.0 * x) * np.cos(3.0 * y) + 0.04 * x
+
+
+# the gait settings of robotoc_tpu_torch.problems (a1_crawl, anymal_gait):
+# robot, MPC class, feet, step length, swing time, swing height, stance
+# time, flying time
+GAITS = {"crawl": ("a1", "MPCCrawl", A1_FEET, 0.12, 0.25, 0.1, 0.05, 0.0),
+         "pace": ("anymal", "MPCPace", None, 0.05, 0.25, 0.08, 0.0, 0.0),
+         "flying_trot": ("anymal", "MPCFlyingTrot", None, 0.15, 0.20, 0.10,
+                         0.0, 0.06)}
+
+
+def jax_gait(name, N=10, t0=0.35, dtype=jnp.float64, T=0.5,
+             swing_start=0.5):
+    """A gait MPC problem of GAITS (the A1 crawl on the terrain, the ANYmal
+    pace or flying trot) planned at t0 from standing, JAX side, in the
+    dict layout of jax_trot."""
+    from robotoc_tpu.models import load_robot
+    from robotoc_tpu.mpc import gait_mpc
+    robot, cls, feet, step, swing, height, stance, flying = GAITS[name]
+    m = load_robot(robot, dtype=dtype)
+    kw = dict(feet=feet, baumgarte_time_step=0.05) if feet else {}
+    mpc = getattr(gait_mpc, cls)(m, T=T, N=N, **kw)
+    planner = mpc.make_planner(
+        terrain=(lambda x, y: float(a1_terrain(x, y))) if feet else None)
+    planner.set_gait_pattern(np.array([step, 0, 0]), 0.0)
+    if flying > 0:
+        mpc.set_gait_pattern(planner, swing_height=height, swing_time=swing,
+                             flying_time=flying,
+                             swing_start_time=swing_start)
+    else:
+        mpc.set_gait_pattern(planner, swing_height=height, swing_time=swing,
+                             stance_time=stance,
+                             swing_start_time=swing_start)
+    q0 = jnp.asarray(A1_Q0 if feet else Q_STAND, dtype)
+    v0 = jnp.zeros(m.nv, dtype)
+    mpc.planner.init(q0)
+    mpc.config_cost = mpc.config_cost.replace(q_ref=q0)
+    grid, costs = mpc._build_schedule_and_costs(t0, q0, v0)
+    return dict(model=m, mpc=mpc, contacts=mpc.contacts, limits=mpc.limits,
+                grid=grid, costs=costs, q0=q0, v0=v0)
+
+
+def costs_to_torch(costs, **kw):
+    """A JAX cost stack converted to the port's, component by component."""
+    from robotoc_tpu.costs.config_cost import ConfigurationSpaceCost
+    from robotoc_tpu.costs.task_cost import BaseRotationCost
+    out = []
+    for c in costs:
+        if isinstance(c, ConfigurationSpaceCost):
+            out.append(convert.config_cost(deep_fields(c), **kw))
+        elif isinstance(c, BaseRotationCost):
+            out.append(convert.base_rotation_cost(deep_fields(c), **kw))
+        else:
+            out.append(convert.multi_frame_task_cost(deep_fields(c), **kw))
+    return tuple(out)
+
+
 def trot_to_torch(jt, dtype=torch.float64):
-    """The JAX trot problem's objects converted to the port's (CPU)."""
+    """The JAX problem's objects (a gait problem of jax_trot, jax_walk or
+    jax_gait) converted to the port's (CPU)."""
     kw = dict(dtype=dtype, device="cpu")
-    cfg, br, task = jt["costs"]
     return dict(
         model=convert.robot_model(fields(jt["model"]), **kw),
         contacts=convert.contact_model(fields(jt["contacts"]), **kw),
         limits=convert.joint_limits(fields(jt["limits"]), **kw),
         grid=convert.grid_data(fields(jt["grid"]), **kw),
-        costs=(convert.config_cost(fields(cfg), **kw),
-               convert.base_rotation_cost(deep_fields(br), **kw),
-               convert.multi_frame_task_cost(deep_fields(task), **kw)),
+        costs=costs_to_torch(jt["costs"], **kw),
         q0=torch.as_tensor(np.array(jt["q0"]), dtype=dtype),
         v0=torch.as_tensor(np.array(jt["v0"]), dtype=dtype),
         n_imp=jt["mpc"].n_reserved)

@@ -104,12 +104,25 @@ def test_cost_fold_inputs_match_jax(case):
         _close(t.numpy(), np.asarray(j), 1e-14, f"cost input {i}")
 
 
-def _xla_oracles(case):
-    """The XLA oracles' outputs, cost fold included, computed once per
-    case: both variants of chain_plain are held against them."""
-    if "xla" in case:
+def _xla_oracles(case, ins=None):
+    """The XLA oracles' outputs, cost fold included, on the case's K6
+    inputs (or on `ins` in their place), computed once per case: both
+    variants of chain_plain are held against them. One jitted function
+    per case serves every call."""
+    if ins is None and "xla" in case:
         return case["xla"]
-    jt, g, f = case["jt"], case["g"], case["f"]
+    g, f = case["g"], case["f"]
+    out = _xla_fn(case)(*(case["ins"] if ins is None else ins),
+                        f["u"][:-1], g["t"][:-1], g["dt"], f["q"][1:])
+    if ins is None:
+        case["xla"] = out
+    return out
+
+
+def _xla_fn(case):
+    if "xla_fn" in case:
+        return case["xla_fn"]
+    jt = case["jt"]
     m, contacts = jt["model"], jt["contacts"]
 
     def one(q, v, a, fe, fr, pr, R, u, t, dt, qn):
@@ -133,9 +146,8 @@ def _xla_oracles(case):
                    se_xres=-(Cinv @ r))
         return out
 
-    case["xla"] = jax.jit(jax.vmap(one))(*case["ins"], f["u"][:-1],
-                                         g["t"][:-1], g["dt"], f["q"][1:])
-    return case["xla"]
+    case["xla_fn"] = jax.jit(jax.vmap(one))
+    return case["xla_fn"]
 
 
 def _check_xla_oracles(case, with_cost):
@@ -150,14 +162,22 @@ def _check_pallas_interpret(case, with_cost):
     per case with the cost fold (its other outputs are the no-fold
     variant's)."""
     if "pallas" not in case:
-        jt = case["jt"]
-        fn = pch.make_chain(jt["model"], jt["contacts"], interpret=True,
-                            with_cost=True)
-        case["pallas"] = jax.jit(fn)(*case["ins"], *case["cost_j"])
+        case["pallas"] = _pallas_fn(case)(*case["ins"], *case["cost_j"])
     ref = case["pallas"]
     got = _plain(case, with_cost)
     for name in NAMES[with_cost]:
         _close(got[name].numpy(), ref[name], 1e-6, name)
+
+
+def _pallas_fn(case):
+    """The Pallas kernel in interpret mode with the cost fold, jitted once
+    per case: a later call on other inputs of the same shapes reuses its
+    compile."""
+    if "pallas_fn" not in case:
+        jt = case["jt"]
+        case["pallas_fn"] = jax.jit(pch.make_chain(
+            jt["model"], jt["contacts"], interpret=True, with_cost=True))
+    return case["pallas_fn"]
 
 
 def _host_run(case, host, ins, names, shapes):
@@ -253,17 +273,17 @@ def test_host_build_follows_pallas_off_the_unit_sphere(case, host):
     oracle's jacfwd through q (+) e gives |q|^2 R(q / |q|) hat(e), and the
     q derivatives differ by about |q|^2 - 1. The port keeps both: K6's host
     build follows the Pallas kernel (interpret mode) and chain_plain the
-    XLA oracle, each to 1e-12 (no cost fold: no acos in these rows)."""
-    jt, tp = case["jt"], case["tp"]
+    XLA oracle, each to 1e-12 (the rows of K6 without the cost fold: no
+    acos in them). The Pallas kernel and the XLA oracle are the case's own
+    compiles, the cost fold's outputs left unread."""
+    tp = case["tp"]
     ins = list(case["ins"])
     q = np.array(ins[0])
     q[:, 3:7] *= 1 + 3e-8
     ins[0] = q
-    pallas = jax.jit(pch.make_chain(jt["model"], jt["contacts"],
-                                    interpret=True))(*ins)
-    xla = {n: np.asarray(x) for n, x in zip(("tau", "dtau_dq", "dCdq",
-                                             "dgdq", "dtask"), jax.jit(
-        jax.vmap(lambda *a: _xla_q_rows(jt, *a)))(*ins))}
+    pallas = _pallas_fn(case)(*ins, *case["cost_j"])
+    xla = {n: np.asarray(x) for n, x in _xla_oracles(case, ins).items()
+           if n in ("tau", "dtau_dq", "dCdq", "dgdq", "dtask")}
     names = chn._OUTS
     got = _host_run(case, host, ins, names,
                     {n: np.asarray(pallas[n]).shape for n in names})
@@ -276,13 +296,6 @@ def test_host_build_follows_pallas_off_the_unit_sphere(case, host):
     gap = max(float(np.abs(np.asarray(pallas[n]) - xla[n]).max())
               / float(np.abs(xla[n]).max()) for n in xla)
     assert 1e-8 < gap < 2e-7
-
-
-def _xla_q_rows(jt, q, v, a, fe, fr, pr, R):
-    """tau and the q derivatives of the XLA oracle for one stage."""
-    res = jct.fused_stage_derivatives(jt["model"], jt["contacts"], q, v, a,
-                                      fe, fr, pr, R, with_task=True)
-    return res[0][0], res[1][0], res[2][0], res[3], res[4][1]
 
 
 @pytest.mark.skipif(shutil.which("g++") is None, reason="g++ is not "
