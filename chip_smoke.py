@@ -22,10 +22,7 @@ Phases, each of which raises (and so exits non-zero) on failure:
      included). Time kernel
      and library call by device time (the profiler), the plain version and
      one wrapper call by CUDA events (float32); count K6's operations on
-     the host (csrc/chain_flops.cpp, g++) for its bound; print, not gated,
-     K5's switching branch in float32 against its plain version and both
-     against the plain version in float64 on the LQR inputs of one trot
-     and one walk fleet update (`c2_reading`);
+     the host (csrc/chain_flops.cpp, g++) for its bound;
   3. "slice": the ANYmal standing contact OCP (T 0.5, N 20), B = 128
      scenarios with perturbed initial configurations, float32, two updates
      per MPC step through OCPSolver.update with the kernels (K6 without the
@@ -74,20 +71,22 @@ Phases, each of which raises (and so exits non-zero) on failure:
      added by the search; printed: scenarios that backtracked, ms per MPC
      step with and without the search); the filter search through solve
      on the B = 128 standing fleet in float32 (4 iterations: finite KKT,
-     launches per build); printed, the walk fleet's KKT after one MPC step
-     with the merit search;
+     launches per build); with the "readings" phase, printed, the walk
+     fleet's KKT after one MPC step with the merit search;
   8. "unconstr": the unconstrained family on the iiwa14 (fixed base, no
      contacts, no kernel on its path: the six kernels' counts stay 0):
      UnconstrOCPSolver.solve reproduces tests/golden/iiwa14_config_ocp.npz
      (N 60, float64: KKT < 1e-7 in < 30 iterations, 1e-6); a B = 128
      float64 fleet with perturbed initial configurations, every scenario
      below 1e-7, two sampled scenarios equal to their own solves (1e-10),
-     ms per iteration, device ms and idle share printed; the fleet in
+     ms per iteration printed; the fleet in
      float32 (finite KKT gated, the rest printed); the filter search to
      KKT < 1e-7; UnconstrParNMPCSolver on tests/test_parnmpc.py's problem
      (KKT < 1e-7 in < 60 iterations, agreement with the Riccati solver at
      that test's tolerances, the filter search to 1e-6 without a
-     numerical failure) and a B = 128 fleet, printed;
+     numerical failure) and a B = 128 fleet, printed; the iiwa14
+     task-space OCP (TaskSpace3DCost on a constant reference, N 30)
+     through solve: KKT < 1e-7 in the JAX package's 12 iterations;
   9. "gaits": the remaining periodic gaits. The Unitree A1 crawl on a
      height map (four point feet on K6's four-feet instance, its stack not
      folded: a second configuration cost on a time-varying reference; T
@@ -99,15 +98,34 @@ Phases, each of which raises (and so exits non-zero) on failure:
      and its touchdown in the horizon), each with the trot's gates:
      launches of all six kernels, finite KKT, the float64 step through the
      kernels against the plain versions (1e-8), the float32 drift at
-     TROT_K; ms per MPC step and the device idle share (the crawl's host
-     time by part); the flying trot's kernels against their plain versions
-     at its flight slots (float64 and float32, TOL);
- 10. print the seconds of each phase, the kernels' JSON line, the card
+     TROT_K; ms per MPC step and the device idle share; the flying trot's
+     kernels against their plain versions at its flight slots (float64 and
+     float32, TOL);
+ 10. "jump": the ANYmal jump MPC (MPCJump, T 0.85, N 10: stance, a full
+     flight and the landing impact with its switching constraint; one
+     reserved impact slot; the KKT-residual search, whose 9 trial steps
+     are one more build of 9 B scenarios). Float64 at B = 1
+     (tests/test_mpc_jump.py): `init` with 60 updates to KKT < 1e-2, the
+     landing targets 0.1 m ahead, `update_solution` at six times with
+     finite KKT, the control input and policy finite, two builds and one
+     sweep of launches per update. A B = 128 fleet of its plan at t = 0.35
+     from the solver's warm start: the gait fleets' gates (launches: 4 of
+     K6, K1, Kc, K2, K3 and 2 of K5 per MPC step), no synchronising call
+     in an update with the search; printed: the scenarios that
+     backtracked, ms per MPC step with and without the search, the
+     device idle share. Every kernel against its plain version on the
+     arguments of each call of one fleet update, the trial build's
+     included (float64; float32, K5 there printed, gated on seeded inputs
+     of the same shapes); K6 and K5 timed for the kernels line;
+ 11. print the seconds of each phase, the kernels' JSON line, the card
      line and the final status line.
 The phase "readings" (not a default phase) prints the trot gate's readings
 on three fleet seeds and two iterates with the planted faults' on each,
 and at the later iterate where the float64 difference off the unit
-quaternion sphere comes from (`phase_readings`).
+quaternion sphere comes from (`phase_readings`); K5's switching branch
+in float32 against its plain version and both against the plain version
+in float64 on the LQR inputs of one trot and one walk fleet update
+(`c2_reading`); and the walk fleet's merit-search KKT (phase solve).
 
     python3 chip_smoke.py --pair <tree> <phase,...> <out_dir>
 
@@ -139,7 +157,6 @@ from robotoc_tpu_torch.ops import chain as chn
 from robotoc_tpu_torch.ops import condense as cd
 from robotoc_tpu_torch.parnmpc import solver as PN
 from robotoc_tpu_torch.riccati import backward_sweep as bs
-from robotoc_tpu_torch.riccati import lqr
 from robotoc_tpu_torch.solver import ocp_solver as OS
 from robotoc_tpu_torch.solver import unconstr_ocp_solver as US
 
@@ -150,12 +167,12 @@ B, N = 128, 20
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {torch.float32: 67e12, torch.float64: 34e12}
 # timed repetitions of a host-clock time (host_ms: the median of REPS
-# calls after one untimed; the gait fleets take 2)
-REPS = 3
+# calls after one untimed; an MPC step of a path is timed on its own run)
+REPS = 1
 # kernel vs plain version, relative to each output's largest magnitude
 TOL = {torch.float64: 1e-10, torch.float32: 1e-4}
 ALL_PHASES = ("build", "kernels", "slice", "trot", "golden", "walk",
-              "solve", "unconstr", "gaits")
+              "solve", "unconstr", "gaits", "jump")
 # the trot's float32 gate: each field's drift from the float64 step at most
 # TROT_K times the largest drift among the plain float32 step and the plain
 # steps from iterates jittered with these seeds: the largest round factor
@@ -178,6 +195,15 @@ WALK_N, WALK_T, WALK_DT = 25, 0.62, 0.04
 CRAWL_T, CRAWL_DT, CRAWL_INIT, GAIT_SCALE = 0.6, 0.1, 10, 0.01
 FIELDS = ("q", "v", "a", "u", "f", "lmd", "gmm", "beta", "mu", "s_lim",
           "z_lim", "s_cone", "z_cone")
+# the jump (tests/test_mpc_jump.py): `init` updates and the MPC's update
+# times; the fleet's time (its horizon holds the flight, the landing at
+# 0.55 with its switching rows, and stance) and initial-state noise. At
+# the MPC's own iterates near the lift-off the switching-constrained
+# Riccati is ill-conditioned (inputs moved by 1e-15 move a step by up to
+# 1e-3: PERF.md), past any float64 gate between two correct kernels; at
+# this warm start the same reading is 1e-10
+JUMP_INIT, JUMP_T, JUMP_SCALE = 60, 0.35, 0.01
+JUMP_TIMES = (0.0, 0.1, 0.25, 0.35, 0.5, 0.6)
 # K6's records: (key in the kernels line, name) of each case; the full
 # iCub's nv 35 instance runs on this many seeded stages (no path runs it)
 K6_RECORDS = {"point fold": ("K6", "K6 chain"),
@@ -503,7 +529,7 @@ def _compare(name, kern_out, plain_out, dtype):
 
 
 def _record(name, source, replaces, err, kern, plain, b, lib=None,
-            plain_reps=5):
+            plain_reps=2):
     """A kernel's record, timed in float32: `ms` and `library_ms` by device
     time (kernel_ms, the profiler), `call_ms` (one call of the wrapper) and
     `plain_ms` (one call of the plain version) by CUDA events, host time
@@ -799,8 +825,7 @@ def phase_kernels(dev):
                 lambda: chn.chain(model, contacts, *args, *cost),
                 lambda: chn.chain_plain(model, contacts, *args, *cost),
                 bound(nbytes(*read, *cost) + nbytes(*got.values()),
-                      n_val + n_tan, dtype), plain_reps=3)
-    c2_reading(dev)
+                      n_val + n_tan, dtype))
     for r in recs.values():
         print(f"  {r['name']:30s} {r['ms']:.4f} ms (a call {r['call_ms']:.4f})"
               f"  plain (a call) {r['plain_ms']:.3f}"
@@ -1017,87 +1042,69 @@ def _f32_drift(tag, sol0, steps, sol_64, factor=10.0, strict=True):
     return rows, bad
 
 
-def _run_path(tag, mk, grid, sol0, q0s, v0s, parts_fn, strict=True,
-              strict_kkt=None, reps=None):
+def _run_path(tag, mk, grid, sol0, q0s, v0s, strict=True,
+              strict_kkt=None, reps=None, expect=None, profile=True):
     """Drive one path: warm-up, counts reset, one MPC step through the
     kernels, counts read; the same step on the plain versions; timings.
     The float32 agreement (`_agree`) gates the KKT when strict_kkt (None:
     as strict) and the fields when strict; a gate not held is returned in
     the result ("f32_gates_missed") for the caller to settle. Returns the
-    launch counts, the result and the two steps' (sol, kkts). `reps`: the
-    timed kernel steps' repetitions (host_ms); the plain step is timed
-    once."""
+    launch counts, the result and the two steps' (sol, kkts). The kernel
+    step is timed on the path run (after its warm-up), with `reps` on the
+    median of that many more (host_ms) instead; the plain step on the run
+    compared (the warm-up has run the same glue). `expect`: each kernel's
+    launches in the step (2 of each when None). With `profile`, one
+    update's device ms and the idle share from a profiler trace (else "not
+    measured": a trace of a host-bound update costs tens of seconds)."""
     strict_kkt = strict if strict_kkt is None else strict_kkt
     s_kern, s_plain = mk(True), mk(False)
     _mpc_step(s_kern, grid, sol0, q0s, v0s)            # warm-up
     torch.cuda.synchronize()
     reset_counts()
+    t_path = time.perf_counter()
     out_k = _mpc_step(s_kern, grid, sol0, q0s, v0s)    # the path
     torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t_path) * 1e3
     launches = read_counts()
     print(f"  {tag}: launches in one MPC step (2 updates): {launches}")
-    check(all(v == 2 for v in launches.values()),
-          f"{tag}: expected 1 launch of each kernel per update: {launches}")
+    expect = expect or {k: 2 for k in launches}
+    check(launches == expect, f"{tag}: launches {launches}, expected "
+          f"{expect}")
     for i, kkt in enumerate(out_k[1]):
         check(bool(torch.isfinite(kkt).all()), f"{tag} update {i}: KKT not "
               "finite")
+    t_plain = time.perf_counter()
     out_p = _mpc_step(s_plain, grid, sol0, q0s, v0s)
+    torch.cuda.synchronize()
+    step_plain_ms = (time.perf_counter() - t_plain) * 1e3
     kkt_fails, field_fails = _agree(tag, sol0, out_k, out_p)
     check(not (strict_kkt and kkt_fails), f"{tag}: " + "; ".join(kkt_fails))
     check(not (strict and field_fails), f"{tag}: " + "; ".join(field_fails))
     fails = kkt_fails + field_fails
     print(f"  {tag}: fleet KKT after the step: max "
           f"{float(out_k[1][-1].max()):.4e}")
-    step_ms = host_ms(lambda: _mpc_step(s_kern, grid, sol0, q0s, v0s),
-                      reps=reps)
-    step_plain_ms = host_ms(lambda: _mpc_step(s_plain, grid, sol0, q0s,
-                                              v0s), reps=1)
-    parts = parts_fn()
-    dev_ms, top = device_time(lambda: s_kern.update(grid, q0s, v0s, sol0))
+    if reps:
+        step_ms = host_ms(lambda: _mpc_step(s_kern, grid, sol0, q0s, v0s),
+                          reps=reps)
+    dev_ms, top = (device_time(lambda: s_kern.update(grid, q0s, v0s, sol0))
+                   if profile else (None, {}))
     out = dict(B=B, N=s_kern.N, dtype="float32", ms_per_mpc_step=step_ms,
                mpc_updates_per_s=B / (step_ms * 1e-3),
                plain_ms_per_mpc_step=step_plain_ms,
-               ms_per_update_parts=parts, device_ms_per_update=dev_ms,
+               device_ms_per_update=dev_ms,
                device_idle_share=(None if dev_ms is None
                                   else 1.0 - dev_ms / (step_ms / 2)),
+               profiled=profile,
                top_device_kernels_ms=top,
                fleet_max_kkt=float(out_k[1][-1].max()),
                f32_gates_missed=fails)
     print(f"  {tag}: ms per MPC step (2 updates, B={B}): {step_ms:.2f} with "
           f"the kernels, {step_plain_ms:.2f} with the plain versions; "
           f"{out['mpc_updates_per_s']:.1f} MPC updates/s")
-    print(f"  {tag}: one update, by part (ms): "
-          + ", ".join(f"{k} {v:.2f}" for k, v in parts.items()))
     print(f"  {tag}: device time per update {dev_ms} ms (profiler), idle "
           f"share {out['device_idle_share']}; top kernels {top}")
     print(f"{tag}: " + json.dumps(out))
     return launches, out, (out_k, out_p)
-
-
-def _parts(model, contacts, limits, costs, sol_b, grid_b, q_b, v_b,
-           n_imp, enable_sw, with_cost, reps=None):
-    """Host time of the synchronised parts of one update (kernels on),
-    each the median of `reps` timed calls (host_ms)."""
-    args, cost = chain_args(model, contacts, costs, sol_b, grid_b,
-                            with_cost)
-    pre = OS.stage_pre_all(model, contacts, limits, 1e-3, costs, sol_b,
-                           grid_b, n_imp=n_imp, use_chain=True)
-    kin = {k: v for k, v in pre.items() if not k.startswith("aux_")}
-    kw = dict(n_imp=n_imp, enable_sw=enable_sw, use_chain=True)
-    built = OS._build(model, contacts, limits, 1e-3, costs, sol_b, grid_b,
-                      q_b, v_b, **kw)
-    return {name: host_ms(fn, reps) for name, fn in (
-        ("chain_K6", lambda: chn.chain(model, contacts, *args, *cost)),
-        ("stage_pre_all", lambda: OS.stage_pre_all(
-            model, contacts, limits, 1e-3, costs, sol_b, grid_b,
-            n_imp=n_imp, use_chain=True)),
-        ("condense", lambda: cd.condense(kin)),
-        ("build", lambda: OS._build(model, contacts, limits, 1e-3, costs,
-                                    sol_b, grid_b, q_b, v_b, **kw)),
-        ("riccati", lambda: bs.solve(built[0], built[2])),
-        ("direction_and_step", lambda: OS._direction_and_step(
-            model, contacts, limits, 1e-3, 0.995, sol_b, grid_b, built,
-            n_imp=n_imp)))}
 
 
 def phase_slice(dev):
@@ -1108,10 +1115,7 @@ def phase_slice(dev):
     mk = lambda k: OS.OCPSolver(   # noqa: E731
         p.model, p.contacts, costs, p.limits, T=p.T, N=p.N,
         options=OS.SolverOptions(use_kernels=k))
-    sol_b, grid_b, q_b, v_b, _ = OS._fleet(sol0, p.grid, q0s, v0s)
-    return _run_path("slice", mk, p.grid, sol0, q0s, v0s, lambda: _parts(
-        p.model, p.contacts, p.limits, costs, sol_b, grid_b, q_b, v_b, 0,
-        False, False))
+    return _run_path("slice", mk, p.grid, sol0, q0s, v0s, profile=False)
 
 
 def trot_fleet(dtype, dev, seed=0, n=N, b=B, make=problems.anymal_trot):
@@ -1222,14 +1226,9 @@ def phase_trot(dev):
     float64 convergence run of one unperturbed scenario."""
     f32_, f64_ = torch.float32, torch.float64
     p, mk, (sol0, q0s, v0s) = trot_fleet(f32_, dev)
-    mpc = p.mpc
-    n_imp = mpc.n_reserved
-    sol_b, grid_b, q_b, v_b, _ = OS._fleet(sol0, p.grid, q0s, v0s)
     # the float32 agreement with the plain step is printed; its KKT gated
     launches, out, (out_k, out_p) = _run_path(
-        "trot", mk, p.grid, sol0, q0s, v0s, lambda: _parts(
-            p.model, mpc.contacts, mpc.limits, p.costs, sol_b, grid_b, q_b,
-            v_b, n_imp, True, True), strict=False, strict_kkt=True)
+        "trot", mk, p.grid, sol0, q0s, v0s, strict=False, strict_kkt=True)
     p64, mk64, (sol64, q64, v64) = trot_fleet(f64_, dev)
     f32 = (mk, p.grid, sol0, q0s, v0s)
     gate = trot_gate("trot", f32, (mk64, p64.grid, sol64, q64, v64), out_k,
@@ -1298,7 +1297,9 @@ def phase_readings(dev, seeds=(0, 1, 2)):
     At the later iterate also the float64 agreement from the rounded
     iterate off the unit sphere with its sources (`f64_sources`), and from
     the float64 fleet's own, unrounded iterate. Ends with a summary line.
-    Not among the default phases."""
+    Not among the default phases. Also the K5 reading of closed check C2
+    (`c2_reading`)."""
+    c2_reading(dev)
     f32_, f64_ = torch.float32, torch.float64
     gated = [(key, kind, PLANT_EPS, True) for key in KERNEL_SITES
              for kind in ("noise", "bf16")]
@@ -1426,13 +1427,10 @@ def phase_walk(dev):
     def fleet(dtype):
         return warm_fleet(p, q, v, dtype, dev, scale=0.0075)
 
-    model, (contacts, limits, costs, grid, _), sol0, q0s, v0s, mk = fleet(f32)
+    _, (_, _, _, grid, _), sol0, q0s, v0s, mk = fleet(f32)
     WALK_FLEET.update(mk=mk, grid=grid, sol0=sol0, q0s=q0s, v0s=v0s)
-    sol_b, grid_b, q_b, v_b, _ = OS._fleet(sol0, grid, q0s, v0s)
     launches, out, (out_k, out_p) = _run_path(
-        "walk", mk, grid, sol0, q0s, v0s, lambda: _parts(
-            model, contacts, limits, costs, sol_b, grid_b, q_b, v_b,
-            mpc.n_reserved, True, True), strict=False)
+        "walk", mk, grid, sol0, q0s, v0s, strict=False)
     # kernels against plain versions in float64 on the same fleet; the
     # float32 gate of the trot is reported beside it, and the float32
     # steps' drift from the float64 one is gated
@@ -1520,7 +1518,7 @@ def _launches_per_build(tag, launches, builds, directions):
           f"({builds} builds, {directions} directions)")
 
 
-def phase_solve(dev):
+def phase_solve(dev, readings=False):
     """OCPSolver.solve and the line searches on the card, through the
     kernels: (a) the golden standing problem in float64 through solve, 16
     iterations, against 16 updates (1e-10 of each field's max-abs) and
@@ -1630,7 +1628,7 @@ def phase_solve(dev):
           f"trot merit: the search adds synchronising calls: {syncs}, at "
           f"{dict(sites['with search'] - sites['without'])}")
     ms = {name: host_ms(lambda: _mpc_step(sv, pt.grid, sol0, q0s, v0s),
-                        reps=3)
+                        reps=1)
           for name, sv in (("with search", s_ls), ("without", s_no))}
     print(f"  solve trot merit (B={B}, float32): launches {launches}; fleet "
           f"KKT max {float(kkts[-1].max()):.4e}; scenarios backtracked, "
@@ -1660,8 +1658,8 @@ def phase_solve(dev):
           + f"; launches {launches}")
     out["standing_filter"] = dict(iterations=loops, launches=launches,
                                   fleet_max_kkt=float(st["kkt_error"].max()))
-    # (e) the walk fleet with the merit search, printed
-    if WALK_FLEET:
+    # (e) the walk fleet with the merit search, printed (with the readings)
+    if WALK_FLEET and readings:
         w = WALK_FLEET
         _, kkts = _mpc_step(w["mk"](True, "merit"), w["grid"], w["sol0"],
                             w["q0s"], w["v0s"])
@@ -1670,49 +1668,29 @@ def phase_solve(dev):
               f"one MPC step {out['walk_merit_kkt']:.4e} (printed, not "
               "gated)")
     else:
-        print("  solve walk merit: the walk phase did not run; no reading")
+        print("  solve walk merit: not read (it needs the walk and the "
+              "readings phases)")
     print("solve: " + json.dumps(out))
     return out
 
 
 IIWA_GOLDEN = os.path.join(ROOT, "tests", "golden", "iiwa14_config_ocp.npz")
+# the JAX package's iteration count on the iiwa14 task-space OCP
+# (tests/test_torch_costs.py)
+TASK_SPACE_ITERS = 12
 UNCONSTR_FIELDS = ("q", "v", "a", "u", "lmd", "gmm", "beta", "slack", "dual")
 
 
 def _arm_timing(tag, p, q0s, v0s, sol):
     """ms per solve iteration of the fleet (one `update` is one iteration's
     work: a build and a Newton step; host clock, synchronised, one timed
-    call after one untimed), the same by part, and from one profiler trace
-    of it the device ms and the device's idle share."""
-    def one():
-        return p.solver.update(q0s, v0s, sol)
-
-    ms = host_ms(one, 1)
-    args = p.solver._args()
-    sb, qb, vb, _ = US._fleet(sol, q0s, v0s)
-    if isinstance(p.solver, PN.UnconstrParNMPCSolver):
-        terms = PN._stage_terms(*args, 0.0, sb, qb, vb)
-        parts = {"stage_terms": host_ms(lambda: PN._stage_terms(
-            *args, 0.0, sb, qb, vb), 1),
-            "inverse_corrections_step": host_ms(lambda: PN._update(
-                *args, 0.995, 0.0, False, 0.75, 0.05, sb, qb, vb,
-                terms=terms), 1)}
-    else:
-        built = US._build_kkt(*args, 0.0, sb, qb, vb)
-        parts = {"build": host_ms(lambda: US._build_kkt(*args, 0.0, sb, qb,
-                                                        vb), 1),
-                 "riccati": host_ms(lambda: lqr.solve(built[0], built[3]),
-                                    1),
-                 "direction_step": host_ms(lambda: US._direction_step(
-                     p.model, p.limits, 1e-3, 0.995, built, sb), 1)}
-    dev_ms, top = device_time(one)
-    idle = None if dev_ms is None else 1.0 - dev_ms / ms
-    print(f"  {tag}: {ms:.2f} ms per solve iteration (host clock), by part "
-          + ", ".join(f"{k} {v:.2f}" for k, v in parts.items())
-          + f"; device {dev_ms} ms (profiler), idle share {idle}; top "
-          f"kernels {top}; {card_line()}")
-    return dict(ms_per_iteration=ms, ms_by_part=parts,
-                device_ms_per_iteration=dev_ms, device_idle_share=idle)
+    call after one untimed). Its parts and device time are not measured:
+    a profiler trace of the serial sweep's launches costs tens of
+    seconds."""
+    ms = host_ms(lambda: p.solver.update(q0s, v0s, sol), 1)
+    print(f"  {tag}: {ms:.2f} ms per solve iteration (host clock); by part "
+          f"and device time not measured; {card_line()}")
+    return dict(ms_per_iteration=ms)
 
 
 def _same(tag, got, want, tol):
@@ -1745,7 +1723,9 @@ def phase_unconstr(dev):
     1e-7; (d) ParNMPC on tests/test_parnmpc.py's problem (N 20, T 1): KKT
     < 1e-7 in < 60 iterations, agreement with the Riccati solver at that
     test's tolerances, the filter search's case to KKT < 1e-6 without a
-    numerical failure, and a B = 128 fleet printed with ms per iteration.
+    numerical failure, and a B = 128 fleet printed with ms per iteration;
+    (e) the iiwa14 task-space OCP of examples/iiwa14_task_space_ocp.py
+    (float64): converged below 1e-7 in the JAX package's iteration count.
     The family reaches none of the six kernels: their counts stay 0."""
     f32, f64 = torch.float32, torch.float64
     card = card_line()
@@ -1892,6 +1872,22 @@ def phase_unconstr(dev):
           f"{float(kpb.max()):.3e}, iterations "
           f"{int(st_pb['iterations'].max())}; {card}")
     lap("parnmpc fleet with timing")
+    # (e) the iiwa14 task-space OCP (TaskSpace3DCost on a ConstantRef)
+    pt = problems.iiwa14_task_space(dtype=f64, device=dev)
+    sol_t, st_t = pt.solver.solve(pt.q0, pt.v0)
+    its_t, kkt_t = int(st_t["iterations"]), float(st_t["kkt_error"])
+    dist = float((rm.frame_position(pt.model, pt.frame_id, sol_t.q[-1])
+                  - pt.target).norm())
+    check(bool(st_t["convergence"]) and kkt_t < 1e-7
+          and its_t == TASK_SPACE_ITERS, f"task space: convergence "
+          f"{bool(st_t['convergence'])}, kkt {kkt_t:.3e}, {its_t} "
+          f"iterations (JAX: {TASK_SPACE_ITERS})")
+    out["task_space"] = dict(iterations=its_t, kkt=kkt_t,
+                             end_effector_error=dist)
+    print(f"  task space (iiwa14, N 30, float64): kkt {kkt_t:.3e} in "
+          f"{its_t} iterations (JAX {TASK_SPACE_ITERS}); end effector "
+          f"{dist:.3e} m from its target; {card}")
+    lap("task space")
     out["seconds"] = seconds
     launches = read_counts()
     check(all(v == 0 for v in launches.values()),
@@ -1994,17 +1990,17 @@ def slot_errors(tag, p, sol_b, grid_b, idx):
     return out
 
 
-def gait_gates(tag, f32, f64, parts_fn):
+def gait_gates(tag, f32, f64):
     """The gates of a gait fleet, as the trot's: one MPC step of the
     float32 fleet through the kernels (`_run_path`: launch counts, finite
-    KKT; the agreement with the plain step printed; ms per MPC step, the
-    device idle share), the float64 fleet's step through the kernels
+    KKT; the agreement with the plain step printed; ms per MPC step, not
+    profiled), the float64 fleet's step through the kernels
     against the plain versions (1e-8) and the float32 drift gate at TROT_K
     (`trot_gate`). f32, f64: (mk, grid, sol0, q0s, v0s). Returns the
     result with the launch counts."""
     t0 = time.perf_counter()
     launches, out, (out_k, out_p) = _run_path(
-        tag, *f32, parts_fn, strict=False, reps=1)
+        tag, *f32, strict=False, profile=False)
     t1 = time.perf_counter()
     gate = trot_gate(tag, f32, f64, out_k, out_p)
     out.update(launches=launches, f64_agreement=gate["f64_agreement"],
@@ -2050,15 +2046,12 @@ def phase_gaits(dev):
     check(not chn.cost_fold_supported(p.model, mpc._costs, mpc.contacts),
           "crawl: its stack should not fold")
     out["crawl_policy_err"] = policy_check(p)
-    model, (contacts, limits, costs, grid, _), sol0, q0s, v0s, mk = \
-        warm_fleet(p, q, v, f32_, dev, scale=GAIT_SCALE)
+    _, (_, _, _, grid, _), sol0, q0s, v0s, mk = warm_fleet(
+        p, q, v, f32_, dev, scale=GAIT_SCALE)
     _, (_, _, _, grid64, _), sol64, q64, v64, mk64 = warm_fleet(
         p, q, v, f64_, dev, scale=GAIT_SCALE)
-    sol_b, grid_b, q_b, v_b, _ = OS._fleet(sol0, grid, q0s, v0s)
     out["crawl"] = gait_gates(
-        "crawl", (mk, grid, sol0, q0s, v0s), (mk64, grid64, sol64, q64, v64),
-        lambda: _parts(model, contacts, limits, costs, sol_b, grid_b, q_b,
-                       v_b, mpc.n_reserved, True, False, reps=1))
+        "crawl", (mk, grid, sol0, q0s, v0s), (mk64, grid64, sol64, q64, v64))
     out["crawl"].update(warm_start_s=warm_s, warm_start_kkt=kkt_w,
                         stage_slots=B * (grid.n_slots - 1))
     seconds = {"crawl warm start": warm_s,
@@ -2090,7 +2083,7 @@ def phase_gaits(dev):
                     "flying trot", pp, sb, gb, idx)
             res["flight_slots"] = len(flight)
         out[name] = gait_gates(name, (mk, p32.grid, sol0, q0s, v0s),
-                               (mk64, p64.grid, sol64, q64, v64), dict)
+                               (mk64, p64.grid, sol64, q64, v64))
         out[name].update(flight_errors=res, cost_fold=folds,
                          stage_slots=B * (p32.grid.n_slots - 1))
         seconds[name] = time.perf_counter() - t0
@@ -2099,6 +2092,272 @@ def phase_gaits(dev):
                                           for k, v in out["seconds"].items()))
     print("gaits: " + json.dumps(out))
     return out
+
+
+def jump_fleet(p, dtype, dev, seed=0):
+    """A fleet of B scenarios of the jump MPC `p` (planned by its `init`)
+    at JUMP_T, in `dtype`: its grid there, the solver's warm start at the
+    standing state broadcast, the initial configurations moved by
+    JUMP_SCALE N(0, 1) in the tangent space (`problems.fleet`, numpy seed
+    `seed`: the same draw in every dtype). Returns (model, contacts, cost,
+    grid, (sol0, q0s, v0s), mk), mk(use_kernels, search="kkt") -> the
+    fleet's solver with the MPC's options and that search."""
+    mpc = p.mpc
+    model, contacts, cost, limits, grid = [convert.astype(x, dtype) for x in (
+        p.model, mpc.contacts, mpc.config_cost, mpc.limits,
+        mpc._grid(JUMP_T))]
+
+    def mk(k, search="kkt"):
+        return OS.OCPSolver(model, contacts, (cost,), limits, T=p.T, N=p.N,
+                            n_reserved_events=mpc.n_reserved,
+                            options=OS.SolverOptions(
+                                max_iter=2, switching_constraints=True,
+                                use_kernels=k, enable_line_search=search))
+    return model, contacts, cost, grid, problems.fleet(
+        mk(True), grid, p.q0.to(dtype), p.v0.to(dtype), B, seed=seed,
+        scale=JUMP_SCALE), mk
+
+
+def kernel_calls(fn):
+    """The arguments of every call of each of the six kernels' wrappers
+    while fn runs, in order: {kernel: [args, ...]}."""
+    seen = {key: [] for key in KERNEL_SITES}
+
+    def grabber(key):
+        def make(kern):
+            def grab(*a):
+                seen[key].append(a)
+                return kern(*a)
+
+            grab.launches = 0   # the wrapper counts on the name it is under
+            return grab
+        return make
+
+    with contextlib.ExitStack() as stack:
+        for key in KERNEL_SITES:
+            stack.enter_context(_swapped(key, grabber(key)))
+        fn()
+    return seen
+
+
+def _kernel_outputs(key, out):
+    """A kernel's outputs as a list (K6's dict in _OUTS order)."""
+    return [out[n] for n in chn._OUTS] if key == "K6" else list(out)
+
+
+def path_kernels(tag, calls, dtype, shown=()):
+    """Each kernel against its plain version on the arguments of every
+    call the path made (`kernel_calls`), at TOL (`_compare`); the kernels
+    in `shown` printed only (each output's max abs error over its
+    max-abs). Returns {kernel: [max abs error of each call]}."""
+    out = {}
+    for key, arg_list in calls.items():
+        _, name, plain = KERNEL_SITES[key]
+        kern = getattr(KERNEL_SITES[key][0], name)
+        out[key] = []
+        for i, a in enumerate(arg_list):
+            got = _kernel_outputs(key, kern(*a))
+            want = _kernel_outputs(key, plain(*a))
+            if key not in shown:
+                out[key].append(_compare(f"{key} {tag} {i}", got, want,
+                                         dtype))
+                continue
+            rel = [float((g - w).abs().max()) / max(float(w.abs().max()),
+                                                    1e-30)
+                   for g, w in zip(got, want) if w is not None]
+            out[key].append(max(rel))
+            print(f"  {key} {tag} {i} {str(dtype):14s} error / max-abs by "
+                  "output " + ", ".join(f"{r:.1e}" for r in rel)
+                  + " (printed, not gated)")
+    return out
+
+
+def _rungs(fn):
+    """The KKT search's rung index of each scenario in each search fn
+    makes (OS._kkt_search recorded)."""
+    seen, search = [], OS._kkt_search
+
+    def recording(*a, **kw):
+        scale, k = search(*a, **kw)
+        seen.append(k)
+        return scale, k
+
+    OS._kkt_search = recording
+    try:
+        fn()
+    finally:
+        OS._kkt_search = search
+    return seen
+
+
+def phase_jump(dev):
+    """The jump MPC through the kernels with the KKT-residual search. (a)
+    float64, B = 1 (tests/test_mpc_jump.py): MPCJump's `init` with
+    JUMP_INIT updates to KKT < 1e-2, the landing targets 0.1 m ahead
+    (1e-12), then `update_solution` at JUMP_TIMES (finite KKT), the first
+    control input and the policy finite; every kernel's launches per
+    update (two builds: the update's and the ladder's; one Riccati sweep).
+    (b) A B = 128 fleet of the MPC's plan at JUMP_T (`jump_fleet`: the
+    solver's warm start at the standing state; a flight with no contact
+    active, the landing impact with its switching rows and stance in the
+    horizon), initial configurations moved by JUMP_SCALE N(0, 1): one MPC
+    step of
+    the float32 fleet (`_run_path`: launches, finite KKT), the float64
+    fleet's step through the kernels against the plain versions (1e-8)
+    and the float32 drift at TROT_K (`trot_gate`); the synchronising
+    calls of one update with the search (none); printed: the scenarios
+    that backtracked, ms per MPC step with and without the search, the
+    device idle share. (c) Every kernel against its plain version on the
+    arguments of each call of one fleet update (the update's build, the
+    ladder's build of 9 B scenarios, the Riccati sweep), float64 and
+    float32 (K5 in float32 printed there: the switching-constrained
+    Riccati's float32 rounding floor on these inputs, check C2; gated on
+    seeded inputs of the same shapes, `lqr_inputs`); K6 (no fold) on the
+    path's stage slots and K5 (switching) on those seeded inputs timed
+    for the kernels line. Returns (launches of the fleet's MPC step,
+    result, records)."""
+    f32_, f64_ = torch.float32, torch.float64
+    t_phase = time.perf_counter()
+    out, seconds = {}, {}
+    # (a) the MPC in float64 at B = 1
+    t0 = time.perf_counter()
+    p = problems.anymal_jump(dtype=f64_, device=dev)
+    mpc = p.mpc
+    reset_counts()
+    kkt0, kkts = None, []
+
+    def run_mpc():
+        nonlocal kkt0
+        kkt0 = mpc.init(0.0, p.q0, p.v0, num_iters=JUMP_INIT)
+        kkts.extend(mpc.update_solution(t, 0.05, p.q0, p.v0, max_iter=2)
+                    for t in JUMP_TIMES)
+
+    rungs_b1 = _rungs(run_mpc)
+    launches = read_counts()
+    n_upd = JUMP_INIT + 2 * len(JUMP_TIMES)
+    want = {k: n_upd * (1 if k == "K5" else 2) for k in launches}
+    check(launches == want, f"jump MPC: launches {launches} != {want}")
+    back_b1 = sum(int(k.max()) > 0 for k in rungs_b1)
+    moved = mpc._p_land[:, 0] - mpc._p_stance[:, 0]
+    check(np.isfinite(kkt0) and kkt0 < 1e-2, f"jump init: KKT {kkt0:.3e}")
+    check(np.allclose(moved, 0.1, rtol=0, atol=1e-12),
+          f"jump: landing targets moved {moved}")
+    check(all(np.isfinite(k) for k in kkts), f"jump updates: KKT {kkts}")
+    u0 = mpc.get_initial_control_input()
+    pol = mpc.get_control_policy(0.01)
+    check(tuple(u0.shape) == (12,) and bool(torch.isfinite(u0).all())
+          and bool(torch.isfinite(pol.tauJ).all()),
+          "jump: control input or policy not finite")
+    seconds["mpc float64"] = time.perf_counter() - t0
+    print(f"  jump MPC (float64, B = 1): init KKT {kkt0:.3e} after "
+          f"{JUMP_INIT} updates; landing targets moved {moved.tolist()}; "
+          "KKT after update_solution at "
+          + ", ".join(f"t {t}: {k:.3e}" for t, k in zip(JUMP_TIMES, kkts))
+          + f"; launches in its {n_upd} updates {launches}; updates that "
+          f"backtracked {back_b1} (rungs "
+          f"{[int(k.max()) for k in rungs_b1 if int(k.max()) > 0]}); "
+          f"{seconds['mpc float64']:.1f} s")
+    out["mpc"] = dict(init_kkt=kkt0, launches=launches, update_kkts=kkts,
+                      landing_moved=moved.tolist(), backtracked=back_b1)
+    # (b) the fleet
+    t0 = time.perf_counter()
+    model, contacts, cost, grid, (sol0, q0s, v0s), mk = jump_fleet(
+        p, f32_, dev)
+    _, _, _, grid64, (sol64, q64, v64), mk64 = jump_fleet(p, f64_, dev)
+    cm = grid.contact_mask.sum(dim=-1).tolist()
+    print(f"  jump fleet at t = {JUMP_T}: contacts per slot {cm}")
+    check(min(cm) == 0 and float(grid.imp_mask.sum()) == 4,
+          "jump fleet: no flight and landing in the horizon")
+    check(not chn.cost_fold_supported(model, (cost,), contacts),
+          "jump: its stack should not fold")
+    expect = {k: 2 if k == "K5" else 4 for k in COUNTERS}
+    launches, res, (out_k, out_p) = _run_path(
+        "jump", mk, grid, sol0, q0s, v0s, strict=False, expect=expect)
+    gate = trot_gate("jump", (mk, grid, sol0, q0s, v0s),
+                     (mk64, grid64, sol64, q64, v64), out_k, out_p)
+    res.update(launches=launches, f64_agreement=gate["f64_agreement"],
+               drift_ratio=gate["drift_ratio"], drift_factor=TROT_K)
+    s_kkt, s_no = mk(True), mk(True, False)
+    sync_sites(lambda: s_no.update(grid, q0s, v0s, sol0))
+    sites = {"without": sync_sites(lambda: s_no.update(grid, q0s, v0s,
+                                                       sol0))}
+    rungs = _rungs(lambda: sites.update({"with search": sync_sites(
+        lambda: s_kkt.update(grid, q0s, v0s, sol0))}))
+    back = int((rungs[0] > 0).sum())
+    hist = torch.bincount(rungs[0], minlength=len(OS.KKT_SCALES)).tolist()
+    syncs = {name: sum(c.values()) for name, c in sites.items()}
+    print(f"  jump: synchronising calls of one update by line: "
+          f"{ {k: dict(v) for k, v in sites.items()} }")
+    check(syncs["with search"] == 0, f"jump: the update with the search "
+          f"synchronises: {dict(sites['with search'])}")
+    t0_no = time.perf_counter()          # s_no's glue is warm
+    _mpc_step(s_no, grid, sol0, q0s, v0s)
+    torch.cuda.synchronize()
+    ms_no = (time.perf_counter() - t0_no) * 1e3
+    res.update(backtracked=back, rungs=hist, syncs=syncs,
+               ms_per_mpc_step_without_search=ms_no,
+               stage_slots=B * (grid.n_slots - 1))
+    print(f"  jump (B={B}, float32): scenarios that backtracked in the "
+          f"first update: {back} of {B} (scenarios by rung: {hist}); ms "
+          f"per MPC step {res['ms_per_mpc_step']:.2f} with "
+          f"the search, {ms_no:.2f} without; device ms per update "
+          f"{res['device_ms_per_update']}, idle share "
+          f"{res['device_idle_share']}")
+    out["fleet"] = res
+    seconds["fleet"] = time.perf_counter() - t0
+    # (c) the kernels on the path's own arguments, both dtypes
+    t0 = time.perf_counter()
+    recs = {}
+    for dtype, (g, s_, q_, v_, mk_) in ((f64_, (grid64, sol64, q64, v64,
+                                                mk64)),
+                                        (f32_, (grid, sol0, q0s, v0s, mk))):
+        sv = mk_(True)
+        calls = kernel_calls(lambda: sv.update(g, q_, v_, s_))
+        n = {k: len(v) for k, v in calls.items()}
+        check(n == {k: 1 if k == "K5" else 2 for k in n},
+              f"jump update: kernel calls {n}")
+        # K5 in float32 on the path's own LQR inputs is printed: the
+        # switching-constrained Riccati's rounding floor there (C2); it is
+        # gated on seeded inputs of the same shapes below
+        errs = path_kernels("jump", calls, dtype,
+                            shown=("K5",) if dtype == f32_ else ())
+        out[f"kernel_errors {dtype}"] = errs
+        Nh = calls["K5"][0][0].shape[1]
+        l_in = lqr_inputs(12, dtype, dev, Nh)
+        e5 = _compare("K5 jump seeded", bs.bwd(*l_in), bs.bwd_plain(*l_in),
+                      dtype)
+        if dtype != f32_:
+            continue
+        k6 = calls["K6"][0]          # the update's own build, B (N + 1)
+        mo, cts, args = k6[0], k6[1], list(k6[2:])
+        kernels.host_library("chain_flops")
+        n_val, n_tan = chn.op_count(mo, cts, *[x.cpu() for x in args])
+        got = chn.chain(mo, cts, *args)
+        recs["K6 jump nofold"] = _record(
+            "K6 chain jump no fold", "robotoc_tpu_torch/csrc/chain.cu",
+            "robotoc_tpu/ops/pallas_chain.py:1110", errs["K6"][0],
+            lambda: chn.chain(mo, cts, *args),
+            lambda: chn.chain_plain(mo, cts, *args),
+            bound(nbytes(*args[:-1]) + nbytes(*got.values()),
+                  n_val + n_tan, dtype))
+        outs = bs.bwd(*l_in)
+        recs["K5 jump"] = _record(
+            "K5 riccati_bwd jump", "robotoc_tpu_torch/csrc/riccati_bwd.cu",
+            "robotoc_tpu/riccati/pallas_scan.py:146", e5,
+            lambda: bs.bwd(*l_in), lambda: bs.bwd_plain(*l_in),
+            bound(nbytes(*l_in) + nbytes(*outs),
+                  B * Nh * flops_k5_step(36, 12, 12), dtype))
+        print(f"  jump kernels: K6 on {args[0].shape[0]} stage slots (the "
+              f"ladder's build {calls['K6'][1][2].shape[0]}), {n_val} + "
+              f"{n_tan} operations; K5 timed on seeded inputs of the "
+              f"path's {B} x {Nh} steps")
+    seconds["kernels"] = time.perf_counter() - t0
+    out["seconds"] = dict(seconds, phase=time.perf_counter() - t_phase)
+    print("  jump seconds: " + ", ".join(f"{k} {v:.1f}"
+                                         for k, v in out["seconds"].items()))
+    print("jump: " + json.dumps({k: v for k, v in out.items()
+                                 if not k.startswith("kernel_errors")}))
+    return launches, out, recs
 
 
 def _summary(out):
@@ -2218,7 +2477,7 @@ def main(phases=ALL_PHASES):
              "biped standing OCP (N 4, one scenario, float64): 12 updates")
         done("walk")
     if "solve" in phases:
-        phase_solve(dev)
+        phase_solve(dev, readings="readings" in phases)
         done("solve")
     if "unconstr" in phases:
         phase_unconstr(dev)
@@ -2230,6 +2489,13 @@ def main(phases=ALL_PHASES):
         note(out["flying_trot"]["launches"], (("K1ft", "K1"), ("Kcft", "Kc")),
              "flying trot: " + step)
         done("gaits")
+    if "jump" in phases:
+        launches, _, jrecs = phase_jump(dev)
+        recs.update(jrecs)
+        note(launches, (("K6 jump nofold", "K6"), ("K5 jump", "K5")),
+             "jump: " + step + " with the KKT search (each update builds "
+             "twice: its own build and the ladder's of 9 B scenarios)")
+        done("jump")
     print("seconds by phase: " + ", ".join(f"{k} {v:.1f}"
                                            for k, v in seconds.items()))
     print(f"total {time.perf_counter() - t0:.1f} s")

@@ -19,6 +19,8 @@ import torch
 
 from .constraints.joint_limits import JointLimits
 from .core.structs import LQRData, LQRPolicy
+from .costs import task_cost as tc
+from .costs.base import DiscountedCost
 from .costs.config_cost import ConfigurationSpaceCost
 from .costs.task_cost import BaseRotationCost, MultiFrameTaskCost
 from .device import resolve
@@ -180,3 +182,82 @@ def multi_frame_task_cost(fields: dict, dtype=torch.float64,
     return _build(MultiFrameTaskCost, fields, dtype, device,
                   nested={"foot_refs": step_swing_foot_ref,
                           "com_ref": step_com_ref})
+
+
+def constant_ref(fields: dict, dtype=torch.float64,
+                 device=None) -> tc.ConstantRef:
+    return _build(tc.ConstantRef, fields, dtype, device)
+
+
+def periodic_swing_foot_ref(fields: dict, dtype=torch.float64,
+                            device=None) -> tc.PeriodicSwingFootRef:
+    return _build(tc.PeriodicSwingFootRef, fields, dtype, device)
+
+
+def periodic_com_ref(fields: dict, dtype=torch.float64,
+                     device=None) -> tc.PeriodicCoMRef:
+    return _build(tc.PeriodicCoMRef, fields, dtype, device)
+
+
+def se3_ref(fields: dict, dtype=torch.float64, device=None) -> tc.SE3Ref:
+    return _build(tc.SE3Ref, fields, dtype, device)
+
+
+def discrete_time_swing_foot_ref(fields: dict, dtype=torch.float64,
+                                 device=None) -> tc.DiscreteTimeSwingFootRef:
+    return _build(tc.DiscreteTimeSwingFootRef, fields, dtype, device)
+
+
+def discrete_time_com_ref(fields: dict, dtype=torch.float64,
+                          device=None) -> tc.DiscreteTimeCoMRef:
+    return _build(tc.DiscreteTimeCoMRef, fields, dtype, device)
+
+
+# the task-space references, told apart by their field names
+_REFS = ((("R", "p"), se3_ref), (("p",), constant_ref),
+         (("p0",), periodic_swing_foot_ref), (("com0",), periodic_com_ref),
+         (("bounds", "pos"), discrete_time_swing_foot_ref),
+         (("bounds", "com"), discrete_time_com_ref))
+
+
+def reference(fields: dict, dtype=torch.float64, device=None):
+    """The task-space reference whose fields these are: a ConstantRef,
+    SE3Ref, PeriodicSwingFootRef, PeriodicCoMRef, DiscreteTimeSwingFootRef
+    or DiscreteTimeCoMRef, picked by its field names."""
+    for names, fn in _REFS:
+        if all(n in fields for n in names):
+            return fn(fields, dtype=dtype, device=device)
+    raise ValueError(f"no reference has the fields {sorted(fields)}")
+
+
+def task_space_3d_cost(fields: dict, dtype=torch.float64,
+                       device=None) -> tc.TaskSpace3DCost:
+    """fields["ref"]: the field dict of a reference (`reference`)."""
+    return _build(tc.TaskSpace3DCost, fields, dtype, device,
+                  nested={"ref": reference})
+
+
+def com_cost(fields: dict, dtype=torch.float64, device=None) -> tc.CoMCost:
+    """fields["ref"]: the field dict of a reference (`reference`)."""
+    return _build(tc.CoMCost, fields, dtype, device,
+                  nested={"ref": reference})
+
+
+def task_space_6d_cost(fields: dict, dtype=torch.float64,
+                       device=None) -> tc.TaskSpace6DCost:
+    """fields["ref"]: the field dict of an SE3Ref."""
+    return _build(tc.TaskSpace6DCost, fields, dtype, device,
+                  nested={"ref": se3_ref})
+
+
+def local_contact_force_cost(fields: dict, dtype=torch.float64,
+                             device=None) -> tc.LocalContactForceCost:
+    return _build(tc.LocalContactForceCost, fields, dtype, device)
+
+
+def discounted_cost(fields: dict, dtype=torch.float64,
+                    device=None) -> DiscountedCost:
+    """fields: base (the port's component, already built), gamma, dt_d and
+    t0 (floats)."""
+    return DiscountedCost(fields["base"], float(fields["gamma"]),
+                          float(fields["dt_d"]), float(fields.get("t0", 0.0)))

@@ -3,9 +3,11 @@
 quadratize_stage / quadratize_terminal methods returning Gauss-Newton
 blocks; missing blocks are zeros so a tuple of components just sums.
 Their eval_* methods give the cost alone (the line search's evaluation
-pass)."""
+pass). `DiscountedCost` wraps any component in an exponential time
+discount."""
 from __future__ import annotations
 
+import dataclasses
 from typing import NamedTuple
 
 import torch
@@ -71,6 +73,47 @@ class ImpactQuad(NamedTuple):
 
     def __add__(self, o):
         return ImpactQuad(*(a + b for a, b in zip(self, o)))
+
+
+@dataclasses.dataclass
+class DiscountedCost:
+    """A cost component scaled by gamma^((t - t0) / dt_d) at its grid time
+    t, in every quadratization and cost (the discount factor gamma per
+    discount time step dt_d)."""
+    base: object
+    gamma: float
+    dt_d: float
+    t0: float = 0.0
+
+    def _scale(self, t):
+        return self.gamma ** ((t - self.t0) / self.dt_d)
+
+    def replace(self, **kw):
+        """The discount around the base component with fields replaced."""
+        return dataclasses.replace(
+            self, base=dataclasses.replace(self.base, **kw))
+
+    def quadratize_stage(self, model, nf, q, v, a, u, f, t, dt):
+        quad = self.base.quadratize_stage(model, nf, q, v, a, u, f, t, dt)
+        return type(quad)(*(self._scale(t) * x for x in quad))
+
+    def quadratize_terminal(self, model, q, v, t):
+        quad = self.base.quadratize_terminal(model, q, v, t)
+        return type(quad)(*(self._scale(t) * x for x in quad))
+
+    def quadratize_impact(self, model, q, v, dv, t):
+        quad = self.base.quadratize_impact(model, q, v, dv, t)
+        return type(quad)(*(self._scale(t) * x for x in quad))
+
+    def eval_stage(self, model, q, v, a, u, f, t, dt):
+        return self._scale(t) * self.base.eval_stage(model, q, v, a, u, f,
+                                                     t, dt)
+
+    def eval_terminal(self, model, q, v, t):
+        return self._scale(t) * self.base.eval_terminal(model, q, v, t)
+
+    def eval_impact(self, model, q, v, dv, t):
+        return self._scale(t) * self.base.eval_impact(model, q, v, dv, t)
 
 
 def _takes_kin(comp, kin):

@@ -28,6 +28,13 @@ updates to mid-gait).
 tests/golden/iiwa14_config_ocp.npz pins (fixed base, no contacts) with
 the unconstrained Riccati solver or the ParNMPC solver; `iiwa14_fleet`
 moves its initial configuration by seeded noise for B scenarios.
+`iiwa14_task_space` drives the iiwa14's end effector to a world target
+(a task-space cost on a constant reference beside a configuration cost)
+with the unconstrained Riccati solver.
+
+`anymal_jump` builds the ANYmal jump MPC (MPCJump: stance, a full flight
+and the landing impact with its switching constraint, the KKT-residual
+line search) with its jump pattern set.
 """
 from __future__ import annotations
 
@@ -170,6 +177,36 @@ def anymal_gait(name: str, N: int = 20, T: float = 0.5,
     return _gait_problem(mpc, Q_STAND, t0, options)
 
 
+@dataclasses.dataclass
+class JumpProblem:
+    model: rm.RobotModel
+    mpc: object                  # mpc.mpc_jump.MPCJump
+    q0: torch.Tensor
+    v0: torch.Tensor
+    T: float
+    N: int
+
+
+def anymal_jump(N: int = 10, T: float = 0.85, dtype=torch.float64,
+                device=None, jump_length=(0.1, 0.0, 0.0),
+                flying_time: float = 0.25, ground_time: float = 0.3,
+                options: Optional[OS.SolverOptions] = None) -> JumpProblem:
+    """The ANYmal jump MPC (examples/anymal_jump_mpc.py,
+    tests/test_mpc_jump.py): MPCJump on the four point feet, T 0.85, N 10,
+    the jump pattern set (length `jump_length`, no yaw, flight
+    `flying_time`, ground `ground_time`), standing at Q_STAND at rest.
+    `options`: the solver's, MPCJump's (two updates, switching
+    constraints, the KKT-residual search) when None. mpc.init plans it."""
+    from .mpc.mpc_jump import MPCJump
+    m = load_robot("anymal", dtype=dtype, device=device)
+    kw = dict(dtype=dtype, device=m.device)
+    mpc = MPCJump(m, T=T, N=N, options=options)
+    mpc.set_jump_pattern(jump_length=list(jump_length), jump_yaw=0.0,
+                         flying_time=flying_time, ground_time=ground_time)
+    return JumpProblem(model=m, mpc=mpc, q0=torch.tensor(Q_STAND, **kw),
+                       v0=torch.zeros(m.nv, **kw), T=T, N=N)
+
+
 A1_FEET = ("FL_foot", "RL_foot", "FR_foot", "RR_foot")
 
 
@@ -246,6 +283,52 @@ def iiwa14_config(N: int = 60, T: float = 3.0, dtype=torch.float64,
     return ArmProblem(model=m, cost=cost, limits=lim, solver=solver,
                       q0=torch.tensor(IIWA_Q0, **kw),
                       v0=torch.zeros(7, **kw), T=T, N=N)
+
+
+@dataclasses.dataclass
+class TaskSpaceProblem:
+    model: rm.RobotModel
+    costs: tuple                 # (configuration cost, task-space cost)
+    limits: JointLimits
+    solver: US.UnconstrOCPSolver
+    frame_id: int
+    target: torch.Tensor
+    q0: torch.Tensor
+    v0: torch.Tensor
+    T: float
+    N: int
+
+
+def iiwa14_task_space(N: int = 30, T: float = 1.5, dtype=torch.float64,
+                      device=None, options=None) -> TaskSpaceProblem:
+    """The iiwa14 task-space OCP (examples/iiwa14_task_space_ocp.py): from
+    q0 = 0.5 in every joint at rest, the last frame (the end effector)
+    tracks its start position moved by (0.1, 0.1, -0.1) with
+    TaskSpace3DCost on a ConstantRef (weights 1000, terminal 10 times
+    that), beside a configuration cost holding q0 (q weight 0.1, v and a
+    0.01, terminal 0.1 and 0.01); torques within 100, velocities within
+    pi; UnconstrOCPSolver with `options` (its defaults when None)."""
+    from .costs.task_cost import ConstantRef, TaskSpace3DCost
+    m = load_robot("iiwa14", dtype=dtype, device=device)
+    kw = dict(dtype=dtype, device=m.device)
+    fid = m.frame_id(m.frame_names[-1])
+    q0 = torch.full((7,), 0.5, **kw)
+    target = rm.frame_position(m, fid, q0) + torch.tensor([0.1, 0.1, -0.1],
+                                                          **kw)
+    cfg = make_config_cost(m, q_ref=q0, q_weight=0.1, v_weight=0.01,
+                           a_weight=0.01, q_weight_terminal=0.1,
+                           v_weight_terminal=0.01)
+    w3 = torch.full((3,), 1000.0, **kw)
+    task = TaskSpace3DCost(frame_id=fid, weight=w3, weight_terminal=10.0 * w3,
+                           weight_impact=w3, ref=ConstantRef(p=target))
+    lim = make_joint_limits(m, u_limit=torch.full((7,), 100.0, **kw),
+                            v_limit=torch.full((7,), math.pi, **kw))
+    solver = US.UnconstrOCPSolver(m, (cfg, task), lim, T=T, N=N,
+                                  options=options if options is not None
+                                  else US.SolverOptions())
+    return TaskSpaceProblem(model=m, costs=(cfg, task), limits=lim,
+                            solver=solver, frame_id=fid, target=target,
+                            q0=q0, v0=torch.zeros(7, **kw), T=T, N=N)
 
 
 def iiwa14_fleet(p: ArmProblem, B: int, seed: int = 0,

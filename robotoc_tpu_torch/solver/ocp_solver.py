@@ -19,14 +19,15 @@ carries the same leading B.
 `solve` is the Newton loop (one build per iteration, reused for the next
 direction; each scenario of a fleet frozen once it converges, fails or
 runs out of iterations) with the barrier path-following of the JAX
-package. `enable_line_search` takes the merit search (True or "merit") or
-the Fletcher-Leyffer filter ("filter") of line_search/line_search.py;
-each scenario's step is chosen on the device, with no host
-synchronisation per trial.
+package. `enable_line_search` takes the merit search (True or "merit"),
+the Fletcher-Leyffer filter ("filter") of line_search/line_search.py, or
+the KKT-residual search ("kkt": the largest of the steps 1, 1/2, ...,
+1/256 whose whole rebuilt KKT residual is strictly smaller, on both the
+primal and the dual step, every trial one more build); each scenario's
+step is chosen on the device, with no host synchronisation per trial.
 
 Not ported yet, and refused with NotImplementedError rather than ignored:
-the associative-scan Riccati and the KKT-residual line search ("kkt",
-which only the jump MPC uses).
+the associative-scan Riccati.
 """
 from __future__ import annotations
 
@@ -100,8 +101,8 @@ class SolverOptions:
     fraction_to_boundary_rule: float = 0.995
     parallel_riccati: bool = False
     enable_line_search: object = False
-    """False, True or "merit" (merit backtracking), or "filter" (the
-    Fletcher-Leyffer filter)."""
+    """False, True or "merit" (merit backtracking), "filter" (the
+    Fletcher-Leyffer filter), or "kkt" (KKT-residual backtracking)."""
     switching_constraints: bool = False
     use_kernels: bool = True
     """Condense and Riccati backward sweep through the hand-written CUDA
@@ -120,13 +121,11 @@ class OCPSolver:
         if options.parallel_riccati:
             raise NotImplementedError("SolverOptions.parallel_riccati is "
                                       "not ported yet")
-        if options.enable_line_search == "kkt":
-            raise NotImplementedError('enable_line_search="kkt" is not '
-                                      "ported yet")
         if options.enable_line_search not in (False, True, "merit",
-                                              "filter"):
-            raise ValueError("enable_line_search: False, True, 'merit' or "
-                             f"'filter', not {options.enable_line_search!r}")
+                                              "filter", "kkt"):
+            raise ValueError("enable_line_search: False, True, 'merit', "
+                             "'filter' or 'kkt', not "
+                             f"{options.enable_line_search!r}")
         self.n_reserved_events = int(n_reserved_events)
         self.enable_sw = (bool(options.switching_constraints)
                           and self.n_reserved_events > 0)
@@ -634,15 +633,58 @@ def _trial_fn(model, sol: Solution, d: Directions):
     return trial
 
 
+# the KKT-residual search's trial scales 1, 1/2, ..., 1/256
+KKT_SCALES = tuple(0.5 ** k for k in range(9))
+
+
+def _kkt_search(model, contacts, limits, barrier, costs, sol: Solution,
+                grid: GridData, q_init, v_init, d: Directions, a_p, a_d,
+                kkt_sq, use_kernels, n_imp, enable_sw, use_chain):
+    """KKT-residual backtracking: each scenario's first scale of
+    KKT_SCALES whose trial sol (+) scale (a_p, a_d) d has a whole rebuilt
+    KKT residual (switching rows included) strictly below kkt_sq, else the
+    last; a NaN trial is no improvement. The JAX package tries the scales
+    in a loop, one build each; here all of them are built at once, one
+    build of len(KKT_SCALES) * B scenarios. Returns (scale (B,), the
+    rung index (B,))."""
+    R, B = len(KKT_SCALES), a_p.shape[0]
+    # 1, 1/2, ..., 1/256 made on the device (exact: powers of two), not
+    # copied from the host, which would synchronise
+    scales = (2.0 * torch.full((R, 1), 0.5, dtype=a_p.dtype,
+                               device=a_p.device).cumprod(0)).expand(R, B)
+
+    def rungs(x):
+        """x (B, ...) repeated for each rung: (R * B, ...)."""
+        return x.unsqueeze(0).expand((R,) + tuple(x.shape)).reshape(
+            (R * B,) + tuple(x.shape[1:]))
+
+    def each(obj):
+        return type(obj)(**{f.name: rungs(getattr(obj, f.name))
+                            for f in dataclasses.fields(obj)})
+
+    trials = _integrate_solution(
+        model, each(sol), Directions(*[rungs(x) for x in d]),
+        (scales * a_p).reshape(-1), (scales * a_d).reshape(-1))
+    k_sq = _build(model, contacts, limits, barrier, costs, trials,
+                  each(grid), rungs(q_init), rungs(v_init),
+                  use_kernels=use_kernels, n_imp=n_imp, enable_sw=enable_sw,
+                  use_chain=use_chain)[3].reshape(R, B)
+    k = ls._first_stop(~(k_sq < kkt_sq))
+    return ls._pick(scales, k), k
+
+
 def _direction_and_step(model, contacts, limits, barrier, ftb,
                         sol: Solution, grid: GridData, built,
                         use_kernels=True, n_imp=0, costs=(), q_init=None,
-                        v_init=None, enable_ls=False, filt=None, ls_it=0):
+                        v_init=None, enable_ls=False, filt=None, ls_it=0,
+                        enable_sw=False, use_chain=False):
     """Newton direction + globalised step from a build (fleet inputs).
     Returns (sol, kkt (B,), a_p (B,), policy), and with
     enable_ls == "filter" also the filters (B, MAX_FILTER, 2) augmented
     with the accepted pairs (`filt`: the filters carried by the solve
-    loop, empty when None; `ls_it`: the round-robin slot, an int or (B,))."""
+    loop, empty when None; `ls_it`: the round-robin slot, an int or (B,)).
+    enable_sw and use_chain: the build's own, for the KKT search's
+    trial builds."""
     data, blocks, dx0, kkt_sq, _, sw_aux = built
     dx, du, dlmd_all, policy = backward_sweep.solve(data, dx0,
                                                     use_kernels=use_kernels)
@@ -689,6 +731,11 @@ def _direction_and_step(model, contacts, limits, barrier, ftb,
                                    (sol.q.shape[0],))
         a_p, c_acc, v_acc = ls.filter_search(trial, eval_cv, a_p, filt)
         filt = ls.filter_augment(filt, ls_it, c_acc, v_acc)
+    if enable_ls == "kkt":
+        scale, _ = _kkt_search(model, contacts, limits, barrier, costs, sol,
+                               grid, q_init, v_init, d, a_p, a_d, kkt_sq,
+                               use_kernels, n_imp, enable_sw, use_chain)
+        a_p, a_d = scale * a_p, scale * a_d
     new = _integrate_solution(model, sol, d, a_p, a_d)
     if enable_ls == "filter":
         return new, torch.sqrt(kkt_sq), a_p, policy, filt
@@ -710,7 +757,8 @@ def _update(model, contacts, limits, barrier, ftb, costs, sol: Solution,
     new, kkt, a_p, policy = _direction_and_step(
         model, contacts, limits, barrier, ftb, sol_b, grid_b, built,
         use_kernels=use_kernels, n_imp=n_imp, costs=costs, q_init=q_b,
-        v_init=v_b, enable_ls=enable_ls)[:4]
+        v_init=v_b, enable_ls=enable_ls, enable_sw=enable_sw,
+        use_chain=use_chain)[:4]
     if not batched:
         new = new.map(lambda x: x[0])
         kkt, a_p = kkt[0], a_p[0]
@@ -764,7 +812,8 @@ def _solve(model, contacts, limits, max_iter, kkt_tol, barrier, ftb, costs,
         out = _direction_and_step(
             model, contacts, limits, barrier, ftb, sol_b, grid_b, built,
             use_kernels=use_kernels, n_imp=n_imp, costs=costs, q_init=q_b,
-            v_init=v_b, enable_ls=enable_ls, filt=filt, ls_it=it)
+            v_init=v_b, enable_ls=enable_ls, filt=filt, ls_it=it,
+            enable_sw=enable_sw, use_chain=use_chain)
         new, a_p = out[0], out[2]
         if enable_ls == "filter":
             filt = torch.where(run[:, None, None], out[4], filt)

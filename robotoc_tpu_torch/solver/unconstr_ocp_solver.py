@@ -348,7 +348,9 @@ def _solve(model, cost, limits, dt, barrier, ftb, t0, max_iter, kkt_tol,
     non-finite KKT keeps its last good iterate and ends it with
     convergence False. With enable_ls each scenario carries its filter,
     its slot the scenario's iteration count. One host synchronisation per
-    iteration (the exit test)."""
+    iteration (the exit test). The stats' kkt_history (B, max_iter) holds
+    each scenario's KKT after each of its iterations (NaN after its
+    last)."""
     sol_b, q_b, v_b, batched = _fleet(sol, q_init, v_init)
     Bn, dtype, dev = sol_b.q.shape[0], sol_b.q.dtype, sol_b.q.device
 
@@ -361,6 +363,9 @@ def _solve(model, cost, limits, dt, barrier, ftb, t0, max_iter, kkt_tol,
     it = torch.zeros(Bn, dtype=torch.long, device=dev)
     alpha = torch.ones(Bn, dtype=dtype, device=dev)
     filt = uls.empty_filter(dtype, dev, (Bn,))
+    kkt_h = torch.full((Bn, max_iter), float("nan"), dtype=dtype,
+                       device=dev)
+    rows = torch.arange(Bn, device=dev)
     for _ in range(max_iter):
         run = (it < max_iter) & (kkt > kkt_tol) & ok
         if not bool(run.any()):
@@ -379,9 +384,12 @@ def _solve(model, cost, limits, dt, barrier, ftb, t0, max_iter, kkt_tol,
         kkt = torch.where(run & ok_new, kkt_new, kkt)
         ok = torch.where(run, ok_new, ok)
         alpha = torch.where(run, a_p, alpha)
+        slot = torch.clamp(it, max=max_iter - 1)
+        kkt_h[rows, slot] = torch.where(run, kkt, kkt_h[rows, slot])
         it = it + run.to(it.dtype)
     st = dict(iterations=it, kkt_error=kkt, last_step_size=alpha,
-              convergence=(kkt <= kkt_tol) & ok, numerical_failure=~ok)
+              convergence=(kkt <= kkt_tol) & ok, numerical_failure=~ok,
+              kkt_history=kkt_h)
     if not batched:
         sol_b = sol_b.map(lambda x: x[0])
         st = {k: v[0] for k, v in st.items()}

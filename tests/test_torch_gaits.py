@@ -20,7 +20,9 @@ the JAX package, f64, on the CPU.
     horizon) against the JAX `_update`, each field to 1e-8 of its largest
     magnitude; the port's chain path (K6's function without the cost fold,
     its task rows feeding the stack) against its per-stage jacfwd path,
-    1e-10.
+    1e-10. The same for one f64 update of a B = 2 fleet of the ANYmal pace
+    (N 10, planned at 0.35 s from standing: two feet lifting together and
+    their touchdown in the horizon, the stack not folded).
 """
 import dataclasses
 
@@ -406,9 +408,9 @@ def test_a1_crawl_grid(crawl):
     assert not chn.cost_fold_supported(tp["model"], tp["costs"], contacts)
 
 
-def test_a1_crawl_update_matches_jax_f64(crawl):
-    jt, tp, sol, q0s, v0s = crawl
-
+def _jax_update(jt, tp, sol, q0s, v0s):
+    """The JAX `_update` of a gait problem (XLA path) on each scenario of
+    a fleet, compiled once without backend optimisation."""
     def upd(s, q, v):
         new, kkt, a_p, _ = JOS._update(
             jt["model"], jt["contacts"], jt["limits"], 1e-3, 0.995,
@@ -416,8 +418,12 @@ def test_a1_crawl_update_matches_jax_f64(crawl):
             use_pallas=False, use_chain=False)
         return new, kkt, a_p
 
-    ref_sol, ref_kkt, ref_ap = jax_fleet(jit_unoptimised(upd), sol, q0s,
-                                         v0s)
+    return jax_fleet(jit_unoptimised(upd), sol, q0s, v0s)
+
+
+def test_a1_crawl_update_matches_jax_f64(crawl):
+    jt, tp, sol, q0s, v0s = crawl
+    ref_sol, ref_kkt, ref_ap = _jax_update(jt, tp, sol, q0s, v0s)
     new, kkt, a_p, policy = _port(tp, sol, q0s, v0s, use_chain=True)
     assert policy.Mx is not None          # the switching branch ran
     _close_scaled(kkt.numpy(), ref_kkt, 1e-8, "kkt")
@@ -435,3 +441,41 @@ def test_a1_crawl_chain_path_matches_jacfwd_path(crawl):
                  "s_cone", "z_cone", "xi"):
         _close_scaled(getattr(a[0], name).numpy(),
                       getattr(b[0], name).numpy(), 1e-10, name)
+
+
+# ---- one update of the ANYmal pace against the JAX package -------------
+
+@pytest.fixture(scope="module")
+def pace():
+    jt = jax_gait("pace", N=10, t0=0.35)
+    tp = trot_to_torch(jt)
+    its = [trot_iterate(tp, seed=30 + b) for b in range(B)]
+    sol = {k: np.stack([it[k] for it in its]) for k in its[0]}
+    rng = np.random.default_rng(2)
+    q0s = np.stack([np.asarray(jrm.integrate(
+        jt["model"], jt["q0"], 0.01 * rng.standard_normal(18)))
+        for _ in range(B)])
+    return jt, tp, sol, q0s, np.zeros((B, 18))
+
+
+def test_pace_update_matches_jax_f64(pace):
+    jt, tp, sol, q0s, v0s = pace
+    g = tp["grid"]
+    # two feet lift together and touch down together in the horizon; the
+    # stack (a second configuration cost on a time-varying reference) does
+    # not fold
+    assert float(g.imp_mask.sum()) == 2.0 and int(g.is_impact.sum()) >= 1
+    assert float(g.contact_mask.sum(dim=-1).min()) == 2.0
+    assert not chn.cost_fold_supported(tp["model"], tp["costs"],
+                                       tp["contacts"])
+    ref_sol, ref_kkt, ref_ap = _jax_update(jt, tp, sol, q0s, v0s)
+    new, kkt, a_p, policy = TOS._update(
+        tp["model"], tp["contacts"], tp["limits"], 1e-3, 0.995,
+        tp["costs"], convert.solution(sol, device="cpu"), tp["grid"],
+        torch.as_tensor(q0s), torch.as_tensor(v0s), n_imp=tp["n_imp"],
+        enable_sw=True, use_chain=True)
+    assert policy.Mx is not None          # the switching branch ran
+    _close_scaled(kkt.numpy(), ref_kkt, 1e-8, "kkt")
+    _close_scaled(a_p.numpy(), ref_ap, 1e-8, "step size")
+    for name, val in fields(ref_sol).items():
+        _close_scaled(getattr(new, name).numpy(), val, 1e-8, name)

@@ -150,12 +150,19 @@ def test_single_scenario_equals_fleet_member():
 
 
 def test_unported_options_raise():
+    """The associative-scan Riccati is refused; the KKT-residual search,
+    ported, is accepted; an unknown search is refused."""
     p = problems.anymal_standing(N=N, device="cpu")
     args = (p.model, p.contacts, (p.cost,), p.limits, p.T, p.N)
-    for opts in (dict(parallel_riccati=True),
-                 dict(enable_line_search="kkt")):
-        with pytest.raises(NotImplementedError):
-            TOS.OCPSolver(*args, options=TOS.SolverOptions(**opts))
+    with pytest.raises(NotImplementedError):
+        TOS.OCPSolver(*args, options=TOS.SolverOptions(
+            parallel_riccati=True))
+    s = TOS.OCPSolver(*args, options=TOS.SolverOptions(
+        enable_line_search="kkt"))
+    assert s.options.enable_line_search == "kkt"
+    with pytest.raises(ValueError):
+        TOS.OCPSolver(*args, options=TOS.SolverOptions(
+            enable_line_search="armijo"))
 
 
 def test_golden_anymal_trace_through_the_port():
