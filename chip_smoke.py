@@ -58,8 +58,7 @@ Phases, each of which raises (and so exits non-zero) on failure:
      updates per MPC step: launch counts, finite KKT, agreement with the
      plain versions (in float64 gated; in float32 reported, and the kernel
      step's drift from the float64 step gated against the plain float32
-     steps'), time per MPC step, host time by part and the device idle
-     share;
+     steps'), time per MPC step;
   7. "solve": OCPSolver.solve and the line searches through the kernels:
      the golden problem in float64 through solve (16 iterations, against
      the 16 updates to 1e-10 and the golden trace to 1e-6); the barrier
@@ -105,20 +104,49 @@ Phases, each of which raises (and so exits non-zero) on failure:
      flight and the landing impact with its switching constraint; one
      reserved impact slot; the KKT-residual search, whose 9 trial steps
      are one more build of 9 B scenarios). Float64 at B = 1
-     (tests/test_mpc_jump.py): `init` with 60 updates to KKT < 1e-2, the
+     (tests/test_mpc_jump.py): `init` with 30 updates to KKT < 1e-2, the
      landing targets 0.1 m ahead, `update_solution` at six times with
      finite KKT, the control input and policy finite, two builds and one
      sweep of launches per update. A B = 128 fleet of its plan at t = 0.35
      from the solver's warm start: the gait fleets' gates (launches: 4 of
      K6, K1, Kc, K2, K3 and 2 of K5 per MPC step), no synchronising call
      in an update with the search; printed: the scenarios that
-     backtracked, ms per MPC step with and without the search, the
-     device idle share. Every kernel against its plain version on the
+     backtracked, ms per MPC step with the search. Every kernel against
+     its plain version on the
      arguments of each call of one fleet update, the trial build's
      included (float64; float32, K5 there printed, gated on seeded inputs
      of the same shapes); K6 and K5 timed for the kernels line;
- 11. print the seconds of each phase, the kernels' JSON line, the card
+ 11. "sim": the closed loop (float64, one scenario): the ANYmal trot MPC
+     (N 20, the gait stack folded into K6) in sim.MPCSimulation against the
+     penalty-ground plant (sim.LeggedSimulator, its 10 substeps a tick
+     replayed as one CUDA graph): `init` with 10 updates, then 0.30 s of
+     2.5 ms ticks with the feedback policy, the one-tick delay and an MPC
+     update every two ticks (tests/test_mpc_simulation.py). Gates: that
+     test's bounds (base height, attitude, KKT, finite controls), 2
+     launches of each kernel in every MPC update, each kernel against its
+     plain version on every call of one more update, the first 8 ticks
+     replayed with the MPC on the plain route (1e-8 of max(1, |x|));
+     printed: ms per MPC update, plant ms per tick, ms per control tick;
+ 12. "bounce": the offline ANYmal bounce (examples/anymal_bounce.py, one
+     cycle, N 35, two touchdown impacts, a task cost on stacked periodic
+     references that K6 does not fold, the KKT-residual search), float64:
+     12 iterations of `solve` through the kernels and through the plain
+     route (iterates and KKT histories to 5e-6 of max(1, |x|), ten times
+     their rounding floor), the KKT
+     below the warm start's, launches per iteration, each kernel against
+     its plain version on one iteration's calls (K5 there within 1e-8 of
+     both its plain version on the card and the one on the host's CPU,
+     where its outputs rounded to float32 must read past 1e-8, and at TOL
+     on seeded inputs);
+ 13. print the seconds of each phase, the kernels' JSON line, the card
      line and the final status line.
+The phase "bounce_full" (not a default phase) solves the bounce through the
+kernels to KKT < 1e-6 within 150 iterations (tests/test_offline_gaits.py);
+"floors" (not a default phase) prints the readings behind the sim and
+bounce gates: how far the sim's first ticks and the bounce's iterations
+move when the initial configuration moves by 1e-15, K5 on the LQR inputs of
+each of the bounce's iterations, and the plant's tick op by op and as a
+CUDA graph.
 The phase "readings" (not a default phase) prints the trot gate's readings
 on three fleet seeds and two iterates with the planted faults' on each,
 and at the later iterate where the float64 difference off the unit
@@ -127,11 +155,12 @@ in float32 against its plain version and both against the plain version
 in float64 on the LQR inputs of one trot and one walk fleet update
 (`c2_reading`); and the walk fleet's merit-search KKT (phase solve).
 
-    python3 chip_smoke.py --pair <tree> <phase,...> <out_dir>
+    python3 chip_smoke.py --pair <tree> <phase,...> <out_dir> [runs]
 
 runs the phases named on the package of another tree (a checkout of
 another commit) and on this one in turns, on one card, each run's output
-in <out_dir> (see `pair`).
+in <out_dir> (see `pair`); the phases "all" run each tree's own script
+with its default phases, and runs 2 runs each tree once.
 """
 import contextlib
 import dataclasses
@@ -157,6 +186,7 @@ from robotoc_tpu_torch.ops import chain as chn
 from robotoc_tpu_torch.ops import condense as cd
 from robotoc_tpu_torch.parnmpc import solver as PN
 from robotoc_tpu_torch.riccati import backward_sweep as bs
+from robotoc_tpu_torch.sim import MPCSimulation
 from robotoc_tpu_torch.solver import ocp_solver as OS
 from robotoc_tpu_torch.solver import unconstr_ocp_solver as US
 
@@ -172,7 +202,7 @@ REPS = 1
 # kernel vs plain version, relative to each output's largest magnitude
 TOL = {torch.float64: 1e-10, torch.float32: 1e-4}
 ALL_PHASES = ("build", "kernels", "slice", "trot", "golden", "walk",
-              "solve", "unconstr", "gaits", "jump")
+              "solve", "unconstr", "gaits", "jump", "sim", "bounce")
 # the trot's float32 gate: each field's drift from the float64 step at most
 # TROT_K times the largest drift among the plain float32 step and the plain
 # steps from iterates jittered with these seeds: the largest round factor
@@ -184,8 +214,10 @@ JITTER_SEEDS = (7, 11)
 # relative noise whose refusal is gated, and the sizes only printed
 PLANT_EPS, PLANT_EPS_SHOWN = 1e-4, (1e-5, 1e-6)
 # the walk's closed-loop warm start: control step (the JAX package's bench
-# takes 0.005 s; 0.04 s reaches mid-gait in an eighth of the updates)
-WALK_N, WALK_T, WALK_DT = 25, 0.62, 0.04
+# takes 0.005 s; 0.04 s reaches mid-gait in an eighth of the updates) and
+# `init` updates (its KKT reads 1.8e-11 after 32 on the CPU and its
+# rounding floor, 4e-13, from 35 on)
+WALK_N, WALK_T, WALK_DT, WALK_INIT = 25, 0.62, 0.04, 32
 # the gait paths: the A1 crawl warmed in float64 at B = 1 (`init` with
 # CRAWL_INIT updates, closed-loop updates every CRAWL_DT s) to CRAWL_T, when
 # the rear-right foot swings (its touchdown at 0.75 s, the front-right
@@ -195,15 +227,43 @@ WALK_N, WALK_T, WALK_DT = 25, 0.62, 0.04
 CRAWL_T, CRAWL_DT, CRAWL_INIT, GAIT_SCALE = 0.6, 0.1, 10, 0.01
 FIELDS = ("q", "v", "a", "u", "f", "lmd", "gmm", "beta", "mu", "s_lim",
           "z_lim", "s_cone", "z_cone")
-# the jump (tests/test_mpc_jump.py): `init` updates and the MPC's update
-# times; the fleet's time (its horizon holds the flight, the landing at
-# 0.55 with its switching rows, and stance) and initial-state noise. At
+# the jump (tests/test_mpc_jump.py): `init` updates (that test takes 60;
+# the port's f64 init reads KKT 2.4e-2 after 24, 4.2e-3 after 28, 2.1e-3
+# after 30 and 2.6e-5 after 40 on the CPU, its gate 1e-2) and the MPC's
+# update times; the fleet's time (its horizon holds
+# the flight, the landing at 0.55 with its switching rows, and stance)
+# and initial-state noise. At
 # the MPC's own iterates near the lift-off the switching-constrained
 # Riccati is ill-conditioned (inputs moved by 1e-15 move a step by up to
 # 1e-3: PERF.md), past any float64 gate between two correct kernels; at
 # this warm start the same reading is 1e-10
-JUMP_INIT, JUMP_T, JUMP_SCALE = 60, 0.35, 0.01
+JUMP_INIT, JUMP_T, JUMP_SCALE = 30, 0.35, 0.01
 JUMP_TIMES = (0.0, 0.1, 0.25, 0.35, 0.5, 0.6)
+# the closed loop (tests/test_mpc_simulation.py: the second case's driver
+# options over the first case's 0.30 s): the trot MPC (N 20, float64, one
+# scenario) `init` with SIM_INIT updates at t = 0, then SIM_TIME s of
+# control ticks of SIM_DT with the feedback policy and the one-tick delay,
+# one MPC update (two Newton updates) every SIM_STEPS ticks, against the
+# penalty-ground plant; the first SIM_REPLAY ticks replayed through the
+# plain route and held to SIM_TOL of max(1, |x|)
+SIM_TIME, SIM_DT, SIM_STEPS, SIM_INIT = 0.30, 0.0025, 2, 10
+SIM_REPLAY, SIM_TOL = 8, 1e-8
+# the bounce (examples/anymal_bounce.py, one cycle, float64): the first
+# BOUNCE_ITERS iterations of its solve on each route, held to BOUNCE_TOL of
+# max(1, |x|): ten times their rounding floor (the initial configuration
+# moved by 1e-15 moves the iterates by up to 4.7e-7 of max(1, |x|) on an
+# H100: phase "floors", PERF.md), above the 1e-9 under which the 1e-8 gate
+# would have held; "bounce_full" solves it to KKT 1e-6 in at most
+# BOUNCE_FULL_ITERS iterations (tests/test_offline_gaits.py)
+BOUNCE_ITERS, BOUNCE_TOL, BOUNCE_FULL_ITERS = 12, 5e-6, 150
+# K5 (float64) on the LQR inputs of the bounce's iteration after its 12,
+# against its plain version on the card and on the host's CPU, relative to
+# each output's max-abs: above the sweep's own rounding floor there (its
+# plain version moves by 1.3e-9 to 2.4e-9 when the inputs move by 1e-15;
+# the kernel reads 9.0e-10) and below a kernel whose outputs are rounded to
+# float32 (4.2e-8 to 5.5e-8 on the bounce's well-conditioned iterations;
+# phase "floors", PERF.md)
+K5_BOUNCE_TOL = 1e-8
 # K6's records: (key in the kernels line, name) of each case; the full
 # iCub's nv 35 instance runs on this many seeded stages (no path runs it)
 K6_RECORDS = {"point fold": ("K6", "K6 chain"),
@@ -304,11 +364,13 @@ def kernel_ms(fn, reps=20, warmup=3):
                             for i in range(0, len(times), per)])), "device"
 
 
-def host_ms(fn, reps=None):
+def host_ms(fn, reps=None, warmup=True):
     """Median wall time of `fn` ending in a device synchronise, over `reps`
-    timed calls (REPS when None) after one untimed."""
+    timed calls (REPS when None) after one untimed (none without `warmup`:
+    for work whose glue has just run)."""
     reps = REPS if reps is None else reps
-    fn()
+    if warmup:
+        fn()
     torch.cuda.synchronize()
     times = []
     for _ in range(reps):
@@ -529,7 +591,7 @@ def _compare(name, kern_out, plain_out, dtype):
 
 
 def _record(name, source, replaces, err, kern, plain, b, lib=None,
-            plain_reps=2):
+            plain_reps=1):
     """A kernel's record, timed in float32: `ms` and `library_ms` by device
     time (kernel_ms, the profiler), `call_ms` (one call of the wrapper) and
     `plain_ms` (one call of the plain version) by CUDA events, host time
@@ -1411,7 +1473,7 @@ def phase_walk(dev):
     # the walk's iterate warmed as the MPC runs, float64, one scenario
     t0 = time.perf_counter()
     p = problems.icub_walk(N=WALK_N, dtype=f64, device=dev)
-    t, q, v = problems.warm_start(p, WALK_T, WALK_DT)
+    t, q, v = problems.warm_start(p, WALK_T, WALK_DT, init_iters=WALK_INIT)
     mpc = p.mpc
     kkt_w = mpc.kkt_error(t, q, v)
     warm_s = time.perf_counter() - t0
@@ -1430,7 +1492,7 @@ def phase_walk(dev):
     _, (_, _, _, grid, _), sol0, q0s, v0s, mk = fleet(f32)
     WALK_FLEET.update(mk=mk, grid=grid, sol0=sol0, q0s=q0s, v0s=v0s)
     launches, out, (out_k, out_p) = _run_path(
-        "walk", mk, grid, sol0, q0s, v0s, strict=False)
+        "walk", mk, grid, sol0, q0s, v0s, strict=False, profile=False)
     # kernels against plain versions in float64 on the same fleet; the
     # float32 gate of the trot is reported beside it, and the float32
     # steps' drift from the float64 one is gated
@@ -1627,8 +1689,9 @@ def phase_solve(dev, readings=False):
     check(syncs["with search"] == syncs["without"],
           f"trot merit: the search adds synchronising calls: {syncs}, at "
           f"{dict(sites['with search'] - sites['without'])}")
+    # both solvers' glue has run above: one timed MPC step each
     ms = {name: host_ms(lambda: _mpc_step(sv, pt.grid, sol0, q0s, v0s),
-                        reps=1)
+                        reps=1, warmup=False)
           for name, sv in (("with search", s_ls), ("without", s_no))}
     print(f"  solve trot merit (B={B}, float32): launches {launches}; fleet "
           f"KKT max {float(kkts[-1].max()):.4e}; scenarios backtracked, "
@@ -1684,10 +1747,10 @@ UNCONSTR_FIELDS = ("q", "v", "a", "u", "lmd", "gmm", "beta", "slack", "dual")
 def _arm_timing(tag, p, q0s, v0s, sol):
     """ms per solve iteration of the fleet (one `update` is one iteration's
     work: a build and a Newton step; host clock, synchronised, one timed
-    call after one untimed). Its parts and device time are not measured:
-    a profiler trace of the serial sweep's launches costs tens of
-    seconds."""
-    ms = host_ms(lambda: p.solver.update(q0s, v0s, sol), 1)
+    call; the solve just before has run the same glue). Its parts and
+    device time are not measured: a profiler trace of the serial sweep's
+    launches costs tens of seconds."""
+    ms = host_ms(lambda: p.solver.update(q0s, v0s, sol), 1, warmup=False)
     print(f"  {tag}: {ms:.2f} ms per solve iteration (host clock); by part "
           f"and device time not measured; {card_line()}")
     return dict(ms_per_iteration=ms)
@@ -2206,8 +2269,8 @@ def phase_jump(dev):
     fleet's step through the kernels against the plain versions (1e-8)
     and the float32 drift at TROT_K (`trot_gate`); the synchronising
     calls of one update with the search (none); printed: the scenarios
-    that backtracked, ms per MPC step with and without the search, the
-    device idle share. (c) Every kernel against its plain version on the
+    that backtracked, ms per MPC step with the search. (c) Every kernel
+    against its plain version on the
     arguments of each call of one fleet update (the update's build, the
     ladder's build of 9 B scenarios, the Riccati sweep), float64 and
     float32 (K5 in float32 printed there: the switching-constrained
@@ -2272,15 +2335,17 @@ def phase_jump(dev):
           "jump: its stack should not fold")
     expect = {k: 2 if k == "K5" else 4 for k in COUNTERS}
     launches, res, (out_k, out_p) = _run_path(
-        "jump", mk, grid, sol0, q0s, v0s, strict=False, expect=expect)
+        "jump", mk, grid, sol0, q0s, v0s, strict=False, expect=expect,
+        profile=False)
     gate = trot_gate("jump", (mk, grid, sol0, q0s, v0s),
                      (mk64, grid64, sol64, q64, v64), out_k, out_p)
     res.update(launches=launches, f64_agreement=gate["f64_agreement"],
                drift_ratio=gate["drift_ratio"], drift_factor=TROT_K)
-    s_kkt, s_no = mk(True), mk(True, False)
-    sync_sites(lambda: s_no.update(grid, q0s, v0s, sol0))
-    sites = {"without": sync_sites(lambda: s_no.update(grid, q0s, v0s,
-                                                       sol0))}
+    # the first use of the debug mode is discarded (it can count a call of
+    # its own)
+    s_kkt = mk(True)
+    sync_sites(lambda: s_kkt.update(grid, q0s, v0s, sol0))
+    sites = {}
     rungs = _rungs(lambda: sites.update({"with search": sync_sites(
         lambda: s_kkt.update(grid, q0s, v0s, sol0))}))
     back = int((rungs[0] > 0).sum())
@@ -2290,19 +2355,11 @@ def phase_jump(dev):
           f"{ {k: dict(v) for k, v in sites.items()} }")
     check(syncs["with search"] == 0, f"jump: the update with the search "
           f"synchronises: {dict(sites['with search'])}")
-    t0_no = time.perf_counter()          # s_no's glue is warm
-    _mpc_step(s_no, grid, sol0, q0s, v0s)
-    torch.cuda.synchronize()
-    ms_no = (time.perf_counter() - t0_no) * 1e3
     res.update(backtracked=back, rungs=hist, syncs=syncs,
-               ms_per_mpc_step_without_search=ms_no,
                stage_slots=B * (grid.n_slots - 1))
     print(f"  jump (B={B}, float32): scenarios that backtracked in the "
           f"first update: {back} of {B} (scenarios by rung: {hist}); ms "
-          f"per MPC step {res['ms_per_mpc_step']:.2f} with "
-          f"the search, {ms_no:.2f} without; device ms per update "
-          f"{res['device_ms_per_update']}, idle share "
-          f"{res['device_idle_share']}")
+          f"per MPC step {res['ms_per_mpc_step']:.2f} with the search")
     out["fleet"] = res
     seconds["fleet"] = time.perf_counter() - t0
     # (c) the kernels on the path's own arguments, both dtypes
@@ -2360,6 +2417,463 @@ def phase_jump(dev):
     return launches, out, recs
 
 
+class _TimedMPC:
+    """An MPC whose `update_solution` calls are timed on the host clock
+    (each returns its KKT as a float, so the card has finished) with each
+    call's kernel launches recorded in `rec`; everything else is the
+    MPC's."""
+
+    def __init__(self, mpc, rec):
+        self.mpc, self.rec = mpc, rec
+
+    def update_solution(self, t, dt, q, v):
+        before = read_counts()
+        t0 = time.perf_counter()
+        kkt = self.mpc.update_solution(t, dt, q, v)
+        self.rec["update_s"].append(time.perf_counter() - t0)
+        after = read_counts()
+        self.rec["update_launches"].append(
+            {k: after[k] - before[k] for k in after})
+        return kkt
+
+    def __getattr__(self, name):
+        return getattr(self.mpc, name)
+
+
+class _TimedPlant:
+    """A plant whose `step` calls are timed on the host clock between two
+    synchronisations of the card; everything else is the plant's."""
+
+    def __init__(self, plant, rec):
+        self.plant, self.rec = plant, rec
+
+    def step(self, state, u, n_substeps=1):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = self.plant.step(state, u, n_substeps=n_substeps)
+        torch.cuda.synchronize()
+        self.rec["plant_s"].append(time.perf_counter() - t0)
+        return out
+
+    def __getattr__(self, name):
+        return getattr(self.plant, name)
+
+
+def sim_run(p, ticks, timed=False, q0=None):
+    """The closed loop of `p` (problems.anymal_trot_sim, its MPC planned by
+    `init`) for `ticks` control ticks of SIM_DT from (q0 or p.q0, rest):
+    sim.MPCSimulation with the feedback policy, the one-tick delay and one
+    MPC update every SIM_STEPS ticks. With `timed`, each MPC update's
+    seconds and kernel launches and each plant step's seconds are recorded
+    (`_TimedMPC`, `_TimedPlant`). Returns (the log's arrays, the record
+    with the run's seconds)."""
+    rec = dict(update_s=[], update_launches=[], plant_s=[])
+    mpc, plant = p.mpc, p.simulator
+    if timed:
+        mpc, plant = _TimedMPC(mpc, rec), _TimedPlant(plant, rec)
+    t0 = time.perf_counter()
+    log = MPCSimulation(plant).run(
+        mpc, t0=0.0, q0=p.q0 if q0 is None else q0,
+        simulation_time=ticks * SIM_DT, control_dt=SIM_DT,
+        feedback_policy=True, feedback_delay=True,
+        simulation_steps_per_mpc_update=SIM_STEPS)
+    rec["seconds"] = time.perf_counter() - t0
+    return log.as_arrays(), rec
+
+
+def _log_gap(got, want, names=("q", "v", "u")):
+    """Each log's largest difference over max(1, its largest magnitude)."""
+    return {n: float(np.abs(got[n] - want[n]).max())
+            / max(1.0, float(np.abs(want[n]).max())) for n in names}
+
+
+def sim_problem(dev, use_kernels=True, init_iters=SIM_INIT):
+    """The closed loop's problem (float64) with its MPC on the kernels or
+    on the plain route, planned by `init` with `init_iters` updates."""
+    p = problems.anymal_trot_sim(
+        N=N, dtype=torch.float64, device=dev,
+        options=OS.SolverOptions(switching_constraints=True,
+                                 use_kernels=use_kernels))
+    kkt0 = p.mpc.init(0.0, p.q0, p.v0, num_iters=init_iters)
+    return p, kkt0
+
+
+def phase_sim(dev):
+    """The closed loop on the card (float64, one scenario): the ANYmal
+    trot MPC (problems.anymal_trot_sim, N 20, the gait stack folded into
+    K6) driven by sim.MPCSimulation against the penalty-ground plant
+    (LeggedSimulator, sim_dt 2.5e-4, one CUDA graph of 10 substeps a tick):
+    `init` with SIM_INIT updates (one launch of each kernel an update),
+    then SIM_TIME s of SIM_DT ticks with the feedback policy, the one-tick
+    delay and an MPC update every SIM_STEPS ticks. Gates: the bounds of
+    tests/test_mpc_simulation.py (120 log rows; 0.30 < z < 0.65; |quat w|
+    > 0.97; finite KKT, after the first 5 ticks at most 200 and a median
+    under 10; finite u); 2 launches of each of the six kernels in every
+    MPC update; each kernel against its plain version on the arguments of
+    every call of one more closed-loop update (TOL); the first SIM_REPLAY
+    ticks replayed with the MPC on the plain route from the same plan (the
+    `init` iterate): q, v and u within SIM_TOL of max(1, |x|). Printed:
+    ms per MPC update, plant ms per tick, ms per control tick. Returns
+    (launches of the closed loop, result)."""
+    f64 = torch.float64
+    card = card_line()
+    t_phase = time.perf_counter()
+    out, seconds = {}, {}
+    t0 = time.perf_counter()
+    reset_counts()
+    p, kkt0 = sim_problem(dev)
+    init_launches = read_counts()
+    check(init_launches == {k: SIM_INIT for k in init_launches},
+          f"sim init: launches {init_launches}")
+    check(np.isfinite(kkt0), f"sim init: KKT {kkt0}")
+    planned = {k: getattr(p.mpc, k) for k in ("sol", "grid", "_costs",
+                                              "lqr_policy")}
+    seconds["init"] = time.perf_counter() - t0
+    # the closed loop
+    ticks = int(round(SIM_TIME / SIM_DT))
+    n_upd = ticks // SIM_STEPS
+    reset_counts()
+    arr, rec = sim_run(p, ticks, timed=True)
+    launches = read_counts()
+    seconds["closed loop"] = rec["seconds"]
+    check(len(rec["update_launches"]) == n_upd, "sim: "
+          f"{len(rec['update_launches'])} MPC updates, expected {n_upd}")
+    per_update = {k: 2 for k in launches}
+    off = [(i, c) for i, c in enumerate(rec["update_launches"])
+           if c != per_update]
+    check(not off, f"sim: MPC updates with other launches than "
+          f"{per_update}: {off[:3]}")
+    check(launches == {k: 2 * n_upd for k in launches},
+          f"sim: launches {launches}")
+    z, w, kkt = arr["q"][:, 2], arr["q"][:, 6], arr["kkt"]
+    check(arr["q"].shape[0] == ticks, f"sim: {arr['q'].shape[0]} log rows")
+    check(bool(np.all(z > 0.30) and np.all(z < 0.65)),
+          f"sim: base height out of (0.30, 0.65): {z.min():.4f}, "
+          f"{z.max():.4f}")
+    check(bool(np.all(np.abs(w) > 0.97)), f"sim: |quat w| down to "
+          f"{np.abs(w).min():.4f}")
+    check(bool(np.all(np.isfinite(kkt))), "sim: KKT not finite")
+    check(float(kkt[5:].max()) < 200.0 and float(np.median(kkt[5:]))
+          < 10.0, f"sim: KKT after 5 ticks max {kkt[5:].max():.3e}, "
+          f"median {np.median(kkt[5:]):.3e}")
+    check(bool(np.all(np.isfinite(arr["u"]))), "sim: u not finite")
+    upd_ms = 1e3 * np.asarray(rec["update_s"])
+    plant_ms = 1e3 * np.asarray(rec["plant_s"])
+    res = dict(ticks=ticks, mpc_updates=n_upd, init_kkt=kkt0,
+               z_range=[float(z.min()), float(z.max())],
+               quat_w_min=float(np.abs(w).min()),
+               kkt_max_after_5=float(kkt[5:].max()),
+               kkt_median_after_5=float(np.median(kkt[5:])),
+               launches=launches,
+               ms_per_mpc_update=float(upd_ms.mean()),
+               ms_per_mpc_update_median=float(np.median(upd_ms)),
+               plant_ms_per_tick=float(plant_ms.mean()),
+               plant_ms_per_tick_median=float(np.median(plant_ms)),
+               plant_first_tick_ms=float(plant_ms[0]),
+               ms_per_control_tick=1e3 * rec["seconds"] / ticks)
+    print(f"  sim closed loop (B = 1, float64, N {N}, {ticks} ticks, "
+          f"{n_upd} MPC updates): z {z.min():.4f}-{z.max():.4f}, |quat w| "
+          f">= {np.abs(w).min():.5f}, KKT after 5 ticks max "
+          f"{kkt[5:].max():.3e} median {np.median(kkt[5:]):.3e}; launches "
+          f"{launches}; ms per MPC update {upd_ms.mean():.2f} (median "
+          f"{np.median(upd_ms):.2f}), plant ms per tick {plant_ms.mean():.3f}"
+          f" (median {np.median(plant_ms):.3f}, first tick with the graph's "
+          f"capture {plant_ms[0]:.1f}), ms per control tick "
+          f"{res['ms_per_control_tick']:.2f}; {card}")
+    # the kernels on the calls of one more closed-loop update, from the
+    # loop's last logged state at the next tick
+    t0 = time.perf_counter()
+    q_l, v_l = (torch.as_tensor(arr[k][-1], dtype=f64, device=dev)
+                for k in ("q", "v"))
+    calls = kernel_calls(lambda: p.mpc.update_solution(
+        float(arr["t"][-1]) + SIM_DT, SIM_DT, q_l, v_l))
+    n = {k: len(v) for k, v in calls.items()}
+    check(n == {k: 2 for k in n}, f"sim update: kernel calls {n}")
+    res["kernel_errors"] = path_kernels("sim", calls, f64)
+    seconds["kernels"] = time.perf_counter() - t0
+    # the first ticks replayed with the MPC on the plain route, from the
+    # plan the kernel run's `init` made (its iterate, grid, costs and
+    # policy; the plain MPC's own `init` without an update plans the same)
+    t0 = time.perf_counter()
+    reset_counts()
+    pp, _ = sim_problem(dev, use_kernels=False, init_iters=0)
+    for k, v in planned.items():
+        setattr(pp.mpc, k, v)
+    arr_p, _ = sim_run(pp, SIM_REPLAY)
+    plain_launches = read_counts()
+    check(all(v == 0 for v in plain_launches.values()),
+          f"sim plain replay launched kernels: {plain_launches}")
+    gap = _log_gap(arr_p, {k: v[:SIM_REPLAY] for k, v in arr.items()})
+    check(max(gap.values()) <= SIM_TOL, f"sim: the plain replay of the "
+          f"first {SIM_REPLAY} ticks off by {gap} (> {SIM_TOL:g})")
+    res.update(replay_ticks=SIM_REPLAY, replay_gap=gap)
+    seconds["plain replay"] = time.perf_counter() - t0
+    print(f"  sim: the first {SIM_REPLAY} ticks through the plain route vs "
+          f"the kernels, from the same plan: {gap} of max(1, |x|) "
+          f"(tolerance {SIM_TOL:g})")
+    out.update(res)
+    out["seconds"] = dict(seconds, phase=time.perf_counter() - t_phase)
+    print("  sim seconds: " + ", ".join(f"{k} {v:.1f}"
+                                        for k, v in out["seconds"].items()))
+    print("sim: " + json.dumps({k: v for k, v in out.items()
+                                if k != "kernel_errors"}))
+    return launches, out
+
+
+def bounce_problem(dev, use_kernels=True, max_iter=None):
+    """The bounce (problems.anymal_bounce, one cycle, float64) with its
+    solver's options (the KKT-residual search to KKT 1e-6) on this route
+    and with this iteration cap (BOUNCE_ITERS when None)."""
+    return problems.anymal_bounce(
+        cycles=1, dtype=torch.float64, device=dev,
+        options=OS.SolverOptions(max_iter=max_iter or BOUNCE_ITERS,
+                                 kkt_tol=1e-6,
+                                 enable_line_search="kkt",
+                                 use_kernels=use_kernels))
+
+
+def bounce_solve(p, q0=None):
+    """`solve` of the bounce from its warm start at (q0 or p.q0, rest):
+    (sol, stats, launches, seconds, KKT of the warm start)."""
+    sv = p.solver
+    q0 = p.q0 if q0 is None else q0
+    sol0 = sv.init_solution(p.grid, q0, p.v0)
+    kkt0 = float(sv.kkt_error(p.grid, q0, p.v0, sol0))
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    sol, st = sv.solve(p.grid, q0, p.v0, sol=sol0)
+    torch.cuda.synchronize()
+    return sol, st, read_counts(), time.perf_counter() - t0, kkt0
+
+
+def _rel_gaps(got, want):
+    """Each output's largest difference over its max-abs."""
+    return [float((g - w).abs().max()) / max(float(w.abs().max()), 1e-30)
+            for g, w in zip(got, want) if w is not None]
+
+
+def k5_readings(args, draws=2):
+    """K5 (float64) on one call's LQR inputs, each reading the largest
+    over the outputs of the difference over the output's max-abs: the
+    kernel against its plain version on the card ("kernel"), the plain
+    version on the host's CPU against the one on the card ("cpu plain"),
+    the kernel against the host's ("kernel vs cpu"), the rounding floor:
+    how far the plain version moves when every input moves by 1e-15 N(0,
+    1) relative (seeded draws, "floor"), and a faulty kernel: the kernel's
+    outputs rounded to float32 against the plain version ("float32
+    outputs")."""
+    want = bs.bwd_plain(*args)
+    got = list(bs.bwd(*args))
+    f32 = [None if x is None else x.float().double() for x in got]
+    host = bs.bwd_plain(*[None if x is None else x.cpu() for x in args])
+    host = [None if x is None else x.to(args[0].device) for x in host]
+    gen = torch.Generator(args[0].device).manual_seed(0)
+    floor = 0.0
+    for _ in range(draws):
+        moved = [x if x is None else x * (1 + 1e-15 * torch.randn(
+            x.shape, generator=gen, dtype=x.dtype, device=x.device))
+            for x in args]
+        floor = max(floor, max(_rel_gaps(bs.bwd_plain(*moved), want)))
+    return {"kernel": max(_rel_gaps(got, want)),
+            "cpu plain": max(_rel_gaps(host, want)),
+            "kernel vs cpu": max(_rel_gaps(got, host)), "floor": floor,
+            "float32 outputs": max(_rel_gaps(f32, want))}
+
+
+def phase_bounce(dev):
+    """The ANYmal bounce (problems.anymal_bounce, one cycle, float64: N 35,
+    two touchdown impacts, a configuration cost beside a task cost on the
+    stacked periodic swing-foot and CoM references, which K6 does not fold;
+    the KKT-residual search): the first BOUNCE_ITERS iterations of `solve`
+    through the kernels and through the plain route. Gates: the iterates
+    and the KKT histories of the two routes within BOUNCE_TOL of max(1,
+    |x|); the KKT after them below the warm start's; each kernel's
+    launches per iteration (K6, K1, Kc, K2, K3 two: the iteration's build
+    and the search's trial build, one more for the warm start's; K5 one);
+    each kernel against its plain version on the calls of one iteration
+    (`update`: its build, the trial build of 9 scenarios, the Riccati
+    sweep), TOL; K5 there within K5_BOUNCE_TOL of both the plain version on
+    the card and the plain version on the host's CPU (`k5_readings`), a
+    limit that its outputs rounded to float32 must exceed, and at TOL on
+    seeded inputs of its shapes. Printed: the KKT history,
+    seconds per iteration, K5's rounding floor on the iteration's inputs.
+    Returns (launches of the kernel route, result)."""
+    f64 = torch.float64
+    card = card_line()
+    t_phase = time.perf_counter()
+    p = bounce_problem(dev)
+    check(not chn.cost_fold_supported(p.model, p.costs, p.contacts),
+          "bounce: its stack should not fold")
+    sol_k, st_k, launches, secs_k, kkt0 = bounce_solve(p)
+    sol_p, st_p, launches_p, secs_p, _ = bounce_solve(
+        bounce_problem(dev, use_kernels=False))
+    its = int(st_k["iterations"])
+    check(its == int(st_p["iterations"]) == BOUNCE_ITERS,
+          f"bounce: iterations {its}, {int(st_p['iterations'])}")
+    want = {k: BOUNCE_ITERS if k == "K5" else 2 * BOUNCE_ITERS + 1
+            for k in launches}
+    check(launches == want, f"bounce: launches {launches}, expected {want}")
+    check(all(v == 0 for v in launches_p.values()),
+          f"bounce: the plain route launched kernels: {launches_p}")
+    hist_k = st_k["kkt_history"][:its].cpu().numpy()
+    hist_p = st_p["kkt_history"][:its].cpu().numpy()
+    gaps = {"kkt_history": float(np.abs(hist_k - hist_p).max()
+                                 / max(1.0, float(np.abs(hist_p).max())))}
+    for f in dataclasses.fields(sol_p):
+        a, b = getattr(sol_k, f.name), getattr(sol_p, f.name)
+        gaps[f.name] = float((a - b).abs().max()) / max(
+            1.0, float(b.abs().max()))
+    worst = max(gaps, key=gaps.get)
+    check(gaps[worst] <= BOUNCE_TOL, f"bounce: kernels vs plain after "
+          f"{its} iterations: {worst} off by {gaps[worst]:.3e} (> "
+          f"{BOUNCE_TOL:g})")
+    check(float(hist_k[-1]) < kkt0, f"bounce: KKT {hist_k[-1]:.3e} after "
+          f"{its} iterations, {kkt0:.3e} at the warm start")
+    # the kernels on the calls of one iteration, from the last iterate
+    calls = kernel_calls(lambda: p.solver.update(p.grid, p.q0, p.v0, sol_k))
+    n = {k: len(v) for k, v in calls.items()}
+    check(n == {k: 1 if k == "K5" else 2 for k in n},
+          f"bounce iteration: kernel calls {n}")
+    errs = path_kernels("bounce", calls, f64, shown=("K5",))
+    k5 = k5_readings(calls["K5"][0])
+    check(k5["kernel"] <= K5_BOUNCE_TOL and k5["kernel vs cpu"]
+          <= K5_BOUNCE_TOL, f"bounce: K5 on the iteration's own inputs "
+          f"{k5} of max-abs, past {K5_BOUNCE_TOL:g}")
+    check(k5["float32 outputs"] > K5_BOUNCE_TOL, f"bounce: K5's gate "
+          f"{K5_BOUNCE_TOL:g} would pass its outputs rounded to float32 "
+          f"({k5['float32 outputs']:.3e})")
+    l_in = lqr_inputs(0, f64, dev, calls["K5"][0][0].shape[1])
+    errs["K5 seeded"] = [_compare("K5 bounce seeded", bs.bwd(*l_in),
+                                  bs.bwd_plain(*l_in), f64)]
+    print("  bounce: K5 on the iteration's own inputs, of max-abs: "
+          + ", ".join(f"{k} {v:.3e}" for k, v in k5.items())
+          + f" (gate {K5_BOUNCE_TOL:g} on the kernel against both plain "
+          "versions)")
+    out = dict(N=p.N, slots=p.grid.n_slots, iterations=its,
+               warm_start_kkt=kkt0, kkt_history=hist_k.tolist(),
+               kkt_history_plain=hist_p.tolist(), gaps=gaps,
+               launches=launches,
+               launches_per_iteration={k: (v - (k != "K5")) / its
+                                       for k, v in launches.items()},
+               s_per_iteration=secs_k / its,
+               s_per_iteration_plain=secs_p / its,
+               k5_readings=k5, kernel_errors=errs)
+    out["seconds"] = dict(kernels=secs_k, plain=secs_p,
+                          phase=time.perf_counter() - t_phase)
+    print(f"  bounce (N {p.N}, {p.grid.n_slots} slots, float64, KKT "
+          f"search): KKT {kkt0:.3e} at the warm start, then "
+          + ", ".join(f"{k:.3e}" for k in hist_k)
+          + f"; kernels vs plain {gaps[worst]:.3e} ({worst}); launches "
+          f"{launches}; s per iteration {secs_k / its:.2f} (plain "
+          f"{secs_p / its:.2f}); {card}")
+    print("bounce: " + json.dumps({k: v for k, v in out.items()
+                                   if k != "kernel_errors"}))
+    return launches, out
+
+
+def phase_bounce_full():
+    """Not a default phase: the single-cycle bounce solved through the
+    kernels to KKT < 1e-6 within BOUNCE_FULL_ITERS iterations, the gate of
+    tests/test_offline_gaits.py (the JAX package's own solve of
+    examples/anymal_bounce.py: 131 iterations, KKT 8.741e-07)."""
+    p = bounce_problem(torch.device("cuda"), max_iter=BOUNCE_FULL_ITERS)
+    sol, st, launches, secs, kkt0 = bounce_solve(p)
+    its, kkt = int(st["iterations"]), float(st["kkt_error"])
+    hist = st["kkt_history"][:its].cpu().numpy()
+    print(f"  bounce_full: convergence {bool(st['convergence'])}, {its} "
+          f"iterations, KKT {kkt:.4e}, {secs:.1f} s ({secs / its:.2f} s an "
+          f"iteration); warm start KKT {kkt0:.3e}; launches {launches}; "
+          f"KKT history " + ", ".join(f"{k:.3e}" for k in hist)
+          + f"; {card_line()}")
+    check(bool(st["convergence"]) and kkt < 1e-6 and its <= BOUNCE_FULL_ITERS,
+          f"bounce_full: convergence {bool(st['convergence'])}, KKT "
+          f"{kkt:.3e} after {its} iterations")
+    return dict(iterations=its, kkt=kkt, seconds=secs,
+                kkt_history=hist.tolist())
+
+
+def phase_floors(dev):
+    """Not a default phase: the readings behind the sim and bounce gates.
+    (a) Each path run twice through the kernels, the second time from an
+    initial configuration moved by 1e-15 (the base height); printed, each
+    log's (sim: the first SIM_REPLAY ticks' q, v, u) or each field's and
+    the KKT history's (bounce: BOUNCE_ITERS iterations) difference over
+    max(1, |x|). (b) K5 on the LQR inputs of every one of those bounce
+    iterations (`k5_readings`, four draws for the floor). (c) The plant's
+    tick (10 substeps) op by op and as the captured CUDA graph, from the
+    closed loop's state after SIM_REPLAY ticks: ms per tick, each the
+    median of five."""
+    out = {}
+    p, _ = sim_problem(dev)
+    a0, _ = sim_run(p, SIM_REPLAY)
+    p1, _ = sim_problem(dev)
+    q1 = p1.q0.clone()
+    q1[2] += 1e-15
+    p1.mpc.init(0.0, q1, p1.v0, num_iters=SIM_INIT)
+    a1, _ = sim_run(p1, SIM_REPLAY, q0=q1)
+    out["sim"] = _log_gap(a1, a0)
+    b = bounce_problem(dev)
+    qb = b.q0.clone()
+    qb[2] += 1e-15
+    s0, st0 = bounce_solve(b)[:2]
+    s1, st1 = bounce_solve(b, q0=qb)[:2]
+    gaps = {f.name: float((getattr(s1, f.name) - getattr(s0, f.name))
+                          .abs().max()) / max(1.0, float(
+                              getattr(s0, f.name).abs().max()))
+            for f in dataclasses.fields(s0)}
+    h0, h1 = (st["kkt_history"][:BOUNCE_ITERS].cpu().numpy()
+              for st in (st0, st1))
+    gaps["kkt_history"] = float(np.abs(h1 - h0).max()) / max(
+        1.0, float(np.abs(h0).max()))
+    out["bounce"] = gaps
+    print(f"floors: the initial configuration moved by 1e-15 moves the "
+          f"sim's first {SIM_REPLAY} ticks by {out['sim']} and the "
+          f"bounce's {BOUNCE_ITERS} iterations by {gaps} (of max(1, |x|)); "
+          f"{card_line()}")
+    # (b) K5 at every iterate of the bounce's kernel route
+    rows = []
+    sol = b.solver.init_solution(b.grid, b.q0, b.v0)
+    for i in range(BOUNCE_ITERS):
+        upd = {}
+        calls = kernel_calls(lambda: upd.update(step=b.solver.update(
+            b.grid, b.q0, b.v0, sol)))
+        args = calls["K5"][0]
+        rows.append(k5_readings(args, draws=4))
+        sol = upd["step"][0]
+        print(f"  K5 bounce iteration {i}: " + ", ".join(
+            f"{k} {v:.3e}" for k, v in rows[-1].items()))
+    out["k5_bounce"] = {k: max(r[k] for r in rows) for k in rows[0]}
+    out["k5_bounce_min"] = {k: min(r[k] for r in rows) for k in rows[0]}
+    # (c) the plant: op by op and replayed as a CUDA graph
+    pl = p.simulator
+    n_sub = int(round(SIM_DT / pl.sim_dt))
+    state = pl.init(a0["q"][-1], a0["v"][-1], float(a0["t"][-1]))
+    u = torch.as_tensor(a0["u"][-1], dtype=torch.float64, device=dev)
+    times = {}
+    for name, fn in (("ops", lambda: pl._substeps(state, u, n_sub)),
+                     ("graph", lambda: pl.step(state, u, n_sub))):
+        fn()
+        ts = []
+        for _ in range(5):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            ts.append(1e3 * (time.perf_counter() - t0))
+        times[name] = float(np.median(ts))
+    out["plant_ms_per_tick"] = times
+    print(f"floors: K5 on the bounce's iterations, largest (smallest) of "
+          f"each reading: " + ", ".join(
+              f"{k} {v:.3e} ({out['k5_bounce_min'][k]:.3e})"
+              for k, v in out["k5_bounce"].items())
+          + f"; the plant's tick ({n_sub} substeps) op by op "
+          f"{times['ops']:.2f} ms, as a CUDA graph {times['graph']:.2f} ms; "
+          f"{card_line()}")
+    print("floors: " + json.dumps(out))
+    return out
+
+
 def _summary(out):
     """Each kernel's device time (ms) and ms per MPC step from one run's
     output, and the kernels phase's kernel-vs-plain max abs errors
@@ -2374,6 +2888,12 @@ def _summary(out):
             if line.startswith(tag + ": {"):
                 row[tag + " ms/step"] = json.loads(
                     line[len(tag) + 2:])["ms_per_mpc_step"]
+        if line.startswith("seconds by phase: "):
+            for part in line[len("seconds by phase: "):].split(", "):
+                name, secs = part.rsplit(" ", 1)
+                row[f"seconds {name}"] = float(secs)
+        if line.startswith("total ") and line.endswith(" s"):
+            row["seconds total"] = float(line.split()[1])
         m = re.match(r"  (\S.*?)\s+torch\.(float\d\d)\s+max_abs_err (\S+)",
                      line)
         if m:
@@ -2381,23 +2901,30 @@ def _summary(out):
     return row
 
 
-def pair(other, phases, out_dir):
+def pair(other, phases, out_dir, runs=4):
     """Run `phases` of this script on the package of the tree at `other`
-    and on this tree's in turns (other, this, this, other) on this card,
-    each in its own process, so that both are measured the same way; each
-    run's output goes to <out_dir>/pair_<i>.txt. Prints the kernels'
-    device times and ms per MPC step of each run; returns non-zero if a
-    run failed."""
+    and on this tree's in turns (other, this, this, other; with runs = 2,
+    other, this) on this card, each in its own process, so that both are
+    measured the same way; phases ["all"] runs each tree's own script with
+    its own default phases instead (`python3 chip_smoke.py` in each tree:
+    the two scripts' totals compared).
+    Each run's output goes to <out_dir>/pair_<i>.txt. Prints the kernels'
+    device times, ms per MPC step and seconds by phase of each run;
+    returns non-zero if a run failed."""
     os.makedirs(out_dir, exist_ok=True)
     rc = 0
     rows = []
-    for i, tree in enumerate((other, ROOT, ROOT, other)):
-        code = (f"import runpy, sys; sys.path[:0] = [{tree!r}]; "
+    order = (other, ROOT, ROOT, other) if runs == 4 else (other, ROOT)
+    for i, tree in enumerate(order):
+        if list(phases) == ["all"]:
+            cmd = [sys.executable, "chip_smoke.py"]
+        else:
+            cmd = [sys.executable, "-c", (
+                f"import runpy, sys; sys.path[:0] = [{tree!r}]; "
                 f"g = runpy.run_path({os.path.abspath(__file__)!r}); "
-                f"sys.exit(g['main'](phases={tuple(phases)!r}))")
+                f"sys.exit(g['main'](phases={tuple(phases)!r}))")]
         t0 = time.perf_counter()
-        run = subprocess.run([sys.executable, "-c", code], cwd=tree,
-                             capture_output=True, text=True)
+        run = subprocess.run(cmd, cwd=tree, capture_output=True, text=True)
         with open(os.path.join(out_dir, f"pair_{i}.txt"), "w") as fh:
             fh.write(run.stdout + run.stderr)
         tag = "parent" if tree == other else "change"
@@ -2407,11 +2934,13 @@ def pair(other, phases, out_dir):
               flush=True)
         rc = rc or run.returncode
     # each number beside the other tree's: runs 0, 3 (other) / 1, 2 (this)
-    print("pair, other (runs 0, 3) / this (runs 1, 2):")
+    mine, theirs = ((1, 2), (0, 3)) if runs == 4 else ((1,), (0,))
+    print(f"pair, other (runs {theirs}) / this (runs {mine}):")
     for key in sorted(set().union(*rows)):
         vals = [r.get(key) for r in rows]
         fmt = [f"{v:.4g}" if v is not None else "-" for v in vals]
-        print(f"  {key:40s} {fmt[0]}, {fmt[3]} / {fmt[1]}, {fmt[2]}")
+        print(f"  {key:40s} " + ", ".join(fmt[i] for i in theirs) + " / "
+              + ", ".join(fmt[i] for i in mine))
     return rc
 
 
@@ -2496,6 +3025,34 @@ def main(phases=ALL_PHASES):
              "jump: " + step + " with the KKT search (each update builds "
              "twice: its own build and the ladder's of 9 B scenarios)")
         done("jump")
+
+    def note_path(launches, pairs, run):
+        """Each record's launches on a later path, beside its own: its
+        kernel's count over the run named, counted from 0 just before."""
+        for key, name in pairs:
+            if key in recs:
+                recs[key].setdefault("launches_by_path", {})[run] = \
+                    launches[name]
+
+    if "sim" in phases:
+        launches, _ = phase_sim(dev)
+        note_path(launches, [(k, k) for k in ("K1", "Kc", "K2", "K3", "K5",
+                                              "K6")],
+                  "sim: the closed loop's 60 MPC updates (B = 1, float64)")
+        done("sim")
+    if "bounce" in phases:
+        launches, _ = phase_bounce(dev)
+        note_path(launches, [(k, k[:2]) for k in ("K1", "Kc", "K2", "K3")]
+                  + [("K5 nf0", "K5"), ("K6 nofold", "K6")],
+                  f"bounce: {BOUNCE_ITERS} solve iterations (B = 1, "
+                  "float64)")
+        done("bounce")
+    if "bounce_full" in phases:
+        phase_bounce_full()
+        done("bounce_full")
+    if "floors" in phases:
+        phase_floors(dev)
+        done("floors")
     print("seconds by phase: " + ", ".join(f"{k} {v:.1f}"
                                            for k, v in seconds.items()))
     print(f"total {time.perf_counter() - t0:.1f} s")
@@ -2508,9 +3065,10 @@ def main(phases=ALL_PHASES):
 
 
 if __name__ == "__main__":
-    # python3 chip_smoke.py --pair <tree> <phase,...> <out_dir>: that tree
-    # and this one in turns on one card (see `pair`)
-    if len(sys.argv) == 5 and sys.argv[1] == "--pair":
+    # python3 chip_smoke.py --pair <tree> <phase,...> <out_dir> [runs]:
+    # that tree and this one in turns on one card (see `pair`)
+    if len(sys.argv) in (5, 6) and sys.argv[1] == "--pair":
         sys.exit(pair(os.path.abspath(sys.argv[2]), sys.argv[3].split(","),
-                      os.path.abspath(sys.argv[4])))
+                      os.path.abspath(sys.argv[4]),
+                      runs=int(sys.argv[5]) if len(sys.argv) == 6 else 4))
     sys.exit(main())

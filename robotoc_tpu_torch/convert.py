@@ -178,10 +178,18 @@ def base_rotation_cost(fields: dict, dtype=torch.float64,
 def multi_frame_task_cost(fields: dict, dtype=torch.float64,
                           device=None) -> MultiFrameTaskCost:
     """fields["foot_refs"] / ["com_ref"]: the field dicts of a
-    StepSwingFootRef stacked over the feet and of a StepCoMRef."""
+    StepSwingFootRef stacked over the feet and of a StepCoMRef, or of any
+    task-space references of `reference` (the feet's stacked)."""
+    def pick(step):
+        def convert_ref(f, dtype, device):
+            if "valid" in f:
+                return step(f, dtype=dtype, device=device)
+            return reference(f, dtype=dtype, device=device)
+        return convert_ref
+
     return _build(MultiFrameTaskCost, fields, dtype, device,
-                  nested={"foot_refs": step_swing_foot_ref,
-                          "com_ref": step_com_ref})
+                  nested={"foot_refs": pick(step_swing_foot_ref),
+                          "com_ref": pick(step_com_ref)})
 
 
 def constant_ref(fields: dict, dtype=torch.float64,

@@ -56,18 +56,22 @@ class ConstantRef:
 class PeriodicSwingFootRef:
     """Cyclic swing-foot trajectory: active only during swing; linear
     advance by step_length with a sin^2 height profile of apex
-    step_height."""
-    p0: torch.Tensor                # (3,) initial foot position
-    step_length: torch.Tensor       # (3,) displacement per cycle
-    step_height: torch.Tensor       # ()
-    t0: torch.Tensor                # () first swing start
-    period_swing: torch.Tensor      # ()
-    period: torch.Tensor            # () full cycle duration
+    step_height. The fields may carry a leading feet dim (one reference
+    per foot stacked, as MultiFrameTaskCost takes them); the values then
+    come out as t.shape + (nc, 3) and the active flags as t.shape +
+    (nc,)."""
+    p0: torch.Tensor                # ([nc,] 3) initial foot position
+    step_length: torch.Tensor       # ([nc,] 3) displacement per cycle
+    step_height: torch.Tensor       # ([nc])
+    t0: torch.Tensor                # ([nc]) first swing start
+    period_swing: torch.Tensor      # ([nc])
+    period: torch.Tensor            # ([nc]) full cycle duration
     first_half: bool = False
     """If True the first (partial) step advances by half a step."""
 
     def __call__(self, t):
-        tau = t - self.t0
+        # t against each foot's scalars: a trailing dim per stacked dim
+        tau = t.reshape(t.shape + (1,) * self.t0.dim()) - self.t0
         cycle = torch.floor(tau / self.period)
         tin = tau - cycle * self.period
         in_swing = (tau >= 0.0) & (tin < self.period_swing)

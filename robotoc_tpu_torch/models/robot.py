@@ -173,6 +173,14 @@ def interpolate(model: RobotModel, q0, q1, t):
     return integrate(model, q0, t * difference(model, q0, q1))
 
 
+def normalize(model: RobotModel, q):
+    """q with its base quaternion scaled to unit length."""
+    if not model.floating_base:
+        return q
+    return torch.cat([q[..., :3], lie.quat_normalize(q[..., 3:7]),
+                      q[..., 7:]], dim=-1)
+
+
 def neutral(model: RobotModel):
     q = torch.zeros(model.nq, dtype=model.dtype, device=model.device)
     if model.floating_base:
@@ -302,6 +310,30 @@ def frame_placement(model: RobotModel, fid: int, R_w, p_w):
 def frame_position(model: RobotModel, fid: int, q):
     R_w, p_w = forward_kinematics(model, q)
     return frame_placement(model, fid, R_w, p_w)[1]
+
+
+def joint_velocities(model: RobotModel, q, v):
+    """Local spatial velocity of each joint frame: (..., nj, 6)."""
+    vs = []
+    for i in range(model.nj):
+        vJ = _joint_motion(model, i, v)
+        par = model.parents[i]
+        if par < 0:
+            vs.append(vJ)
+        else:
+            Rl, pl = _joint_placement(model, i, q)
+            vs.append(motion_transform_inv(Rl, pl, vs[par]) + vJ)
+    return torch.stack(vs, dim=-2)
+
+
+def frame_velocity(model: RobotModel, fid: int, q, v):
+    """Local spatial velocity (linear, angular) of frame fid: (..., 6)."""
+    par = model.frame_parents[fid]
+    if par < 0:
+        return torch.zeros(v.shape[:-1] + (6,), dtype=v.dtype,
+                           device=v.device)
+    return motion_transform_inv(model.frame_R[fid], model.frame_p[fid],
+                                joint_velocities(model, q, v)[..., par, :])
 
 
 def com(model: RobotModel, q):
@@ -441,6 +473,11 @@ def crba(model: RobotModel, q):
             row.append(blk.expand(batch + blk.shape[-2:]))
         rows.append(torch.cat(row, dim=-1))
     return torch.cat(rows, dim=-2)
+
+
+def nonlinear_effects(model: RobotModel, q, v):
+    """Coriolis and gravity torques h(q, v) = RNEA(q, v, 0)."""
+    return rnea(model, q, v, torch.zeros_like(v))
 
 
 def rnea_derivatives(model: RobotModel, q, v, a, f_joint=None,

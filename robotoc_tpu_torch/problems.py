@@ -35,6 +35,13 @@ with the unconstrained Riccati solver.
 `anymal_jump` builds the ANYmal jump MPC (MPCJump: stance, a full flight
 and the landing impact with its switching constraint, the KKT-residual
 line search) with its jump pattern set.
+
+`anymal_trot_sim` builds the ANYmal trot MPC of examples/anymal_trot_mpc.py
+with the penalty-ground plant it runs against in closed loop
+(sim.LeggedSimulator). `anymal_bounce` builds the offline multi-cycle
+bounce OCP of examples/anymal_bounce.py: a fixed contact schedule with
+touchdown impacts, periodic swing-foot and CoM references beside a
+configuration cost, solved by OCPSolver with the KKT-residual search.
 """
 from __future__ import annotations
 
@@ -205,6 +212,157 @@ def anymal_jump(N: int = 10, T: float = 0.85, dtype=torch.float64,
                          flying_time=flying_time, ground_time=ground_time)
     return JumpProblem(model=m, mpc=mpc, q0=torch.tensor(Q_STAND, **kw),
                        v0=torch.zeros(m.nv, **kw), T=T, N=N)
+
+
+@dataclasses.dataclass
+class SimProblem:
+    model: rm.RobotModel
+    mpc: object                  # mpc.mpc_trot.MPCTrot
+    simulator: object            # sim.LeggedSimulator
+    q0: torch.Tensor
+    v0: torch.Tensor
+    T: float
+    N: int
+
+
+def anymal_trot_sim(N: int = 20, T: float = 0.5, dtype=torch.float64,
+                    device=None,
+                    options: Optional[OS.SolverOptions] = None
+                    ) -> SimProblem:
+    """The ANYmal trot MPC of examples/anymal_trot_mpc.py (step 0.15 m,
+    swing height 0.1, swing 0.25 s, no stance phase, first swing at 0.5 s;
+    MPCTrot's options when `options` is None) and the plant it runs
+    against (LeggedSimulator at sim_dt 2.5e-4), standing at Q_STAND at
+    rest. mpc.init plans it."""
+    from .mpc.mpc_trot import MPCTrot
+    from .sim import LeggedSimulator
+    m = load_robot("anymal", dtype=dtype, device=device)
+    kw = dict(dtype=dtype, device=m.device)
+    mpc = (MPCTrot(m, T=T, N=N) if options is None
+           else MPCTrot(m, T=T, N=N, options=options))
+    planner = mpc.make_planner()
+    planner.set_gait_pattern(np.array([0.15, 0, 0]), 0.0)
+    mpc.set_gait_pattern(planner, swing_height=0.1, swing_time=0.25,
+                         stance_time=0.0, swing_start_time=0.5)
+    sim = LeggedSimulator(m, mpc.contacts, sim_dt=2.5e-4)
+    return SimProblem(model=m, mpc=mpc, simulator=sim,
+                      q0=torch.tensor(Q_STAND, **kw),
+                      v0=torch.zeros(m.nv, **kw), T=T, N=N)
+
+
+@dataclasses.dataclass
+class BounceProblem:
+    model: rm.RobotModel
+    contacts: ContactModel
+    costs: tuple                 # (ConfigurationSpaceCost, MultiFrameTaskCost)
+    limits: JointLimits
+    schedule: ContactSchedule
+    grid: GridData
+    solver: OS.OCPSolver
+    q0: torch.Tensor
+    v0: torch.Tensor
+    T: float
+    N: int
+
+
+# the bounce of examples/anymal_bounce.py: the hind pair (LH, RH) and the
+# front pair (LF, RF) swing in turns; step, step height, swing time,
+# double-support time, first swing
+BOUNCE = (np.array([0.275, 0.0, 0.0]), 0.125, 0.26, 0.04, 0.1)
+
+
+def anymal_bounce(cycles: int = 1, dtype=torch.float64, device=None,
+                  options: Optional[OS.SolverOptions] = None
+                  ) -> BounceProblem:
+    """The ANYmal bounce OCP of examples/anymal_bounce.py over `cycles`
+    cycles: a configuration cost with impact weights, joint limits,
+    PeriodicSwingFootRef stacked over the four feet and PeriodicCoMRef in
+    a MultiFrameTaskCost, the contact schedule (hind pair, double support,
+    front pair, double support per cycle) discretised at dt 0.02 with 2
+    cycles reserved impact slots, and an OCPSolver with the KKT-residual
+    search to KKT 1e-6 in at most 150 iterations (tests/
+    test_offline_gaits.py) when `options` is None."""
+    from .costs.task_cost import (MultiFrameTaskCost, PeriodicCoMRef,
+                                  PeriodicSwingFootRef)
+    m = load_robot("anymal", dtype=dtype, device=device)
+    kw = dict(dtype=dtype, device=m.device)
+    contacts = make_contacts(m, list(FEET), baumgarte_time_step=0.05)
+    nv = m.nv
+    step_length, step_height, swing_time, double_support_time, t0 = BOUNCE
+    q0 = torch.tensor(Q_STAND, **kw)
+    qw = torch.tensor([0, 0, 0, 250000, 250000, 250000] + [0.0001] * 12,
+                      **kw)
+    vw = torch.tensor([100.0] * 6 + [1.0] * 12, **kw)
+    qwi = torch.tensor([1.0] * 6 + [100.0] * 12, **kw)
+    config_cost = make_config_cost(
+        m, q_ref=q0, q_weight=qw, v_weight=vw, a_weight=1e-6,
+        u_weight=1e-1, q_weight_terminal=qw, v_weight_terminal=vw,
+        q_weight_impact=qwi, v_weight_impact=torch.full((nv,), 100.0, **kw),
+        dv_weight_impact=torch.full((nv,), 1e-6, **kw))
+    lim = make_joint_limits(m, u_limit=torch.full((12,), 80.0, **kw),
+                            v_limit=torch.full((12,), 15.0, **kw))
+    Rw, pw = rm.forward_kinematics(m, q0)
+    plc = np.stack([rm.frame_placement(m, m.frame_id(f), Rw, pw)[1]
+                    .double().cpu().numpy() for f in FEET])
+    com0 = rm.com(m, q0).double().cpu().numpy()
+
+    # the hind pair first at t0, the front pair half a cycle later; each
+    # foot advances a full step per cycle
+    period_full = 2.0 * swing_time + 2.0 * double_support_time
+    front_t0 = t0 + swing_time + double_support_time
+    starts = [front_t0, t0, front_t0, t0]            # LF, LH, RF, RH
+
+    def t(x):
+        return torch.as_tensor(np.asarray(x, dtype=np.float64), **kw)
+
+    foot_refs = PeriodicSwingFootRef(
+        p0=t(plc), step_length=t(np.tile(step_length, (4, 1))),
+        step_height=t([step_height] * 4), t0=t(starts),
+        period_swing=t([swing_time] * 4), period=t([period_full] * 4))
+    com_ref = PeriodicCoMRef(
+        com0=t(com0), vcom=t(0.5 * step_length / swing_time), t0=t(t0),
+        period_active=t(swing_time), period_inactive=t(double_support_time))
+    zero3 = torch.zeros(3, **kw)
+    task_cost = MultiFrameTaskCost(
+        frame_ids=tuple(m.frame_id(f) for f in FEET),
+        foot_weight=torch.full((3,), 1e6, **kw), foot_weight_terminal=zero3,
+        foot_weight_impact=zero3, com_weight=torch.full((3,), 1e6, **kw),
+        com_weight_terminal=zero3, com_weight_impact=zero3,
+        foot_refs=foot_refs, com_ref=com_ref)
+
+    LF, LH, RF, RH = range(4)
+    sched = ContactSchedule(nc=4, default_friction=0.7)
+    sched.init([True] * 4, plc.copy(), t0=0.0)
+    pos = plc.copy()
+    ts = t0
+    for _ in range(cycles):
+        sched.push_back([True, False, True, False], pos.copy(), ts)
+        pos[LH] += step_length
+        pos[RH] += step_length
+        sched.push_back([True] * 4, pos.copy(), ts + swing_time)
+        sched.push_back([False, True, False, True], pos.copy(),
+                        ts + swing_time + double_support_time)
+        pos[LF] += step_length
+        pos[RF] += step_length
+        sched.push_back([True] * 4, pos.copy(),
+                        ts + 2 * swing_time + double_support_time)
+        ts += 2 * swing_time + 2 * double_support_time
+
+    T = t0 + cycles * (2 * double_support_time + 2 * swing_time)
+    N = int(np.floor(T / 0.02))
+    n_impacts = 2 * cycles
+    grid = discretize(sched, 0.0, T, N, n_reserved=n_impacts, dtype=dtype,
+                      device=m.device)
+    if options is None:
+        options = OS.SolverOptions(max_iter=150, kkt_tol=1e-6,
+                                   enable_line_search="kkt")
+    costs = (config_cost, task_cost)
+    solver = OS.OCPSolver(m, contacts, costs, lim, T=T, N=N,
+                          options=options, n_reserved_events=n_impacts)
+    return BounceProblem(model=m, contacts=contacts, costs=costs,
+                         limits=lim, schedule=sched, grid=grid,
+                         solver=solver, q0=q0, v0=torch.zeros(nv, **kw),
+                         T=T, N=N)
 
 
 A1_FEET = ("FL_foot", "RL_foot", "FR_foot", "RR_foot")

@@ -77,6 +77,22 @@ def jax_init_solution(solver, grid, q, v):
     return jax.jit(solver.init_solution)(grid, q, v)
 
 
+def jax_mpc_solver(mpc, costs):
+    """A JAX MPC's solver built as the MPC's `init` builds it (its model,
+    contacts, limits, horizon, options and reserved impact slots) and
+    handed to the MPC, with its warm start jitted (`jax_init_solution`):
+    `init` then skips the eager dispatch of every op of the warm start
+    (about 30 s a process on the CPU; the same values). The solver's own
+    jitted update is the one the MPC would make."""
+    from robotoc_tpu.solver.ocp_solver import OCPSolver
+    solver = OCPSolver(mpc.model, mpc.contacts, costs, mpc.limits, mpc.T,
+                       mpc.N, options=mpc._options,
+                       n_reserved_events=mpc.n_reserved)
+    solver.init_solution = jax.jit(solver.init_solution)
+    mpc._solver = solver
+    return solver
+
+
 def jax_problem(N=4, dtype=jnp.float64):
     """The golden ANYmal standing OCP, JAX side."""
     from robotoc_tpu.constraints.joint_limits import make_joint_limits
@@ -437,3 +453,98 @@ def perturbed_arm_iterate(sol, seed, scale=0.3):
     for name in ("slack", "dual"):
         f[name] = f[name] * np.exp(0.3 * rng.standard_normal(f[name].shape))
     return f
+
+def jax_bounce(cycles=1):
+    """The objects of examples/anymal_bounce.py's `main`, JAX side, built
+    by the example's own lines (without the solve): model, contacts, the
+    two costs, limits, contact schedule, grid, q0, v0, T, N and the
+    reserved impact slots."""
+    from robotoc_tpu.constraints.joint_limits import make_joint_limits
+    from robotoc_tpu.costs.config_cost import make_config_cost
+    from robotoc_tpu.costs.task_cost import (MultiFrameTaskCost,
+                                             PeriodicCoMRef,
+                                             PeriodicSwingFootRef)
+    from robotoc_tpu.models import (com, forward_kinematics,
+                                    frame_placement, load_robot)
+    from robotoc_tpu.models.contacts import make_contacts
+    from robotoc_tpu.planner.contact_sequence import (ContactSchedule,
+                                                      discretize)
+    LF, LH, RF, RH = range(4)
+    m = load_robot("anymal")
+    dtype = m.dtype
+    contacts = make_contacts(m, FEET, baumgarte_time_step=0.05)
+    nv = m.nv
+    step_length = np.array([0.275, 0.0, 0.0])
+    step_height = 0.125
+    swing_time = 0.26
+    double_support_time = 0.04
+    t0 = 0.1
+    q0 = jnp.asarray(Q_STAND, dtype)
+    qw = jnp.asarray([0, 0, 0, 250000, 250000, 250000]
+                     + [0.0001] * (nv - 6), dtype)
+    vw = jnp.asarray([100.0] * 6 + [1.0] * (nv - 6), dtype)
+    qwi = jnp.asarray([1.0] * 6 + [100.0] * (nv - 6), dtype)
+    config_cost = make_config_cost(
+        m, q_ref=q0, q_weight=qw, v_weight=vw, a_weight=1e-6,
+        u_weight=1e-1, q_weight_terminal=qw, v_weight_terminal=vw,
+        q_weight_impact=qwi, v_weight_impact=jnp.full(nv, 100.0, dtype),
+        dv_weight_impact=jnp.full(nv, 1e-6, dtype))
+    lim = make_joint_limits(m, u_limit=jnp.full(12, 80.0, dtype),
+                            v_limit=jnp.full(12, 15.0, dtype))
+    Rw, pw = forward_kinematics(m, q0)
+    plc = np.stack([np.asarray(frame_placement(m, m.frame_id(f), Rw, pw)[1])
+                    for f in FEET])
+    com0 = np.asarray(com(m, q0))
+    period_full = 2.0 * swing_time + 2.0 * double_support_time
+    sl = jnp.asarray(step_length, dtype)
+    sh = jnp.asarray(step_height, dtype)
+
+    def swing_ref(i, t_start):
+        return PeriodicSwingFootRef(
+            p0=jnp.asarray(plc[i], dtype), step_length=sl, step_height=sh,
+            t0=jnp.asarray(t_start, dtype),
+            period_swing=jnp.asarray(swing_time, dtype),
+            period=jnp.asarray(period_full, dtype))
+
+    front_t0 = t0 + swing_time + double_support_time
+    refs = [swing_ref(LF, front_t0), swing_ref(LH, t0),
+            swing_ref(RF, front_t0), swing_ref(RH, t0)]
+    foot_refs = jax.tree.map(lambda *x: jnp.stack(x), *refs)
+    com_ref = PeriodicCoMRef(
+        com0=jnp.asarray(com0, dtype),
+        vcom=jnp.asarray(0.5 * step_length / swing_time, dtype),
+        t0=jnp.asarray(t0, dtype),
+        period_active=jnp.asarray(swing_time, dtype),
+        period_inactive=jnp.asarray(double_support_time, dtype))
+    task_cost = MultiFrameTaskCost(
+        frame_ids=tuple(m.frame_id(f) for f in FEET),
+        foot_weight=jnp.full(3, 1e6, dtype),
+        foot_weight_terminal=jnp.zeros(3, dtype),
+        foot_weight_impact=jnp.zeros(3, dtype),
+        com_weight=jnp.full(3, 1e6, dtype),
+        com_weight_terminal=jnp.zeros(3, dtype),
+        com_weight_impact=jnp.zeros(3, dtype),
+        foot_refs=foot_refs, com_ref=com_ref)
+    sched = ContactSchedule(nc=4, default_friction=0.7)
+    sched.init([True] * 4, plc.copy(), t0=0.0)
+    pos = plc.copy()
+    t = t0
+    for _ in range(cycles):
+        sched.push_back([True, False, True, False], pos.copy(), t)
+        pos[LH] += step_length
+        pos[RH] += step_length
+        sched.push_back([True] * 4, pos.copy(), t + swing_time)
+        sched.push_back([False, True, False, True], pos.copy(),
+                        t + swing_time + double_support_time)
+        pos[LF] += step_length
+        pos[RF] += step_length
+        sched.push_back([True] * 4, pos.copy(),
+                        t + 2 * swing_time + double_support_time)
+        t += 2 * swing_time + 2 * double_support_time
+    T = t0 + cycles * (2 * double_support_time + 2 * swing_time)
+    N = int(np.floor(T / 0.02))
+    n_impacts = 2 * cycles
+    grid = discretize(sched, 0.0, T, N, n_reserved=n_impacts, dtype=dtype)
+    return dict(model=m, contacts=contacts, costs=(config_cost, task_cost),
+                limits=lim, schedule=sched, grid=grid, q0=q0,
+                v0=jnp.zeros(nv, dtype), T=T, N=N, n_imp=n_impacts)

@@ -23,7 +23,7 @@ import torch
 import jax
 import jax.numpy as jnp
 
-from _torch_cases import A1_FEET, A1_Q0, assert_close
+from _torch_cases import A1_FEET, A1_Q0, assert_close, jit_unoptimised
 from test_torch_chain import (_case, _check_host_build,
                               _check_pallas_interpret, _check_xla_oracles,
                               host)  # noqa: F401 (a fixture)
@@ -84,7 +84,8 @@ def test_a1_model_matches_jax(models):
         jm, jnp.asarray(A1_Q0), d))(dq0))
     v, a = (rng.standard_normal((n, 18)) for _ in range(2))
     fids = tuple(jc.frame_ids)
-    want = jax.jit(jax.vmap(lambda *x: _quantities(jrm, jm, fids, *x)))(
+    want = jit_unoptimised(jax.vmap(
+        lambda *x: _quantities(jrm, jm, fids, *x)))(
         q, v, a)
     got = torch.func.vmap(lambda *x: _quantities(trm, tm, fids, *x))(
         *[torch.as_tensor(x) for x in (q, v, a)])

@@ -24,7 +24,8 @@ import jax
 import jax.numpy as jnp
 
 from _torch_cases import (close_tree, deep_fields, icub_q0, jax_walk,
-                          np_tree, rodrigues, trot_iterate, trot_to_torch)
+                          jit_unoptimised, np_tree, rodrigues, trot_iterate,
+                          trot_to_torch)
 
 from robotoc_tpu.constraints import friction_cone as jfc
 from robotoc_tpu.dynamics import switching_constraint as jswc
@@ -79,7 +80,7 @@ def test_description_matches_jax(case):
     assert trm.chain_levels(tm) == ((0, (0,)),) + tuple(
         (1, (i, i + 6)) for i in range(1, 7))
     q, v, a, _ = icub_states(3, 1)
-    wants = np_tree(jax.jit(jax.vmap(lambda q, v, a: (
+    wants = np_tree(jit_unoptimised(jax.vmap(lambda q, v, a: (
         jrm.forward_kinematics(jm, q), jrm.rnea(jm, q, v, a),
         jrm.crba(jm, q))))(q, v, a))
     for i in range(3):
@@ -102,7 +103,7 @@ def test_surface_contact_functions(case):
     p_ref = 0.1 * np.random.default_rng(3).standard_normal((3, 2, 3))
     R_ref = rodrigues(0.1 * np.random.default_rng(4).standard_normal(
         (3, 2, 3)))
-    want = np_tree(jax.jit(jax.vmap(lambda *x: jct.baumgarte_residual(
+    want = np_tree(jit_unoptimised(jax.vmap(lambda *x: jct.baumgarte_residual(
         jm, jc, *x)))(q, v, a, p_ref, R_ref))
     got = torch.func.vmap(lambda *x: tct.baumgarte_residual(tm, tc, *x))(
         *map(T, (q, v, a, p_ref, R_ref)))
@@ -110,12 +111,14 @@ def test_surface_contact_functions(case):
     # the stage derivatives (fused_stage_derivatives) are held against JAX
     # through K6's plain version in tests/test_torch_chain.py
     args = (q, a, v, f, fric)
-    want = np_tree(jax.jit(jax.vmap(lambda *x: jct.fused_impact_derivatives(
+    want = np_tree(jit_unoptimised(jax.vmap(
+        lambda *x: jct.fused_impact_derivatives(
         jm, jc, *x, with_task=True)))(*args))
     got = torch.func.vmap(lambda *x: tct.fused_impact_derivatives(
         tm, tc, *x, with_task=True))(*map(T, args))
     close_tree(got, want, TOL, name="fused_impact_derivatives")
-    want = np_tree(jax.jit(jax.vmap(lambda *x: jct.impact_velocity_residual(
+    want = np_tree(jit_unoptimised(jax.vmap(
+        lambda *x: jct.impact_velocity_residual(
         jm, jc, *x)))(q, v))
     got = torch.func.vmap(lambda *x: tct.impact_velocity_residual(
         tm, tc, *x))(T(q), T(v))
@@ -170,7 +173,7 @@ def test_wrench_cone(case):
     assert float(tfc.residual_and_jac(tm, tc, q, f_bad, T([0.7, 0.7]))[0]
                  .max()) > 0
     _, _, _, fs = icub_states(2, 5)
-    want = np_tree(jax.jit(jax.vmap(lambda f: jfc.residual_and_jac(
+    want = np_tree(jit_unoptimised(jax.vmap(lambda f: jfc.residual_and_jac(
         jm, jc, jnp.asarray(q.numpy()), f, jnp.asarray([0.6, 0.5]))))(fs))
     for i in range(2):
         got = tfc.residual_and_jac(tm, tc, q, T(fs[i]), T([0.6, 0.5]))
@@ -188,7 +191,7 @@ def test_switching_constraint_surface_rows(case):
     p = 0.1 * np.random.default_rng(9).standard_normal((2, 3))
     for mask in (np.array([0.0, 1.0]), np.array([1.0, 1.0])):
         args = (q[0], v[0], a[0], 0.028, 0.028, p, R, mask)
-        want = np_tree(jax.jit(lambda *x: jswc.residual_and_jacs(
+        want = np_tree(jit_unoptimised(lambda *x: jswc.residual_and_jacs(
             jw["model"], jw["contacts"], *x))(*args))
         got = tswc.residual_and_jacs(tp["model"], tp["contacts"],
                                      *map(T, args))
@@ -214,7 +217,7 @@ def test_impact_stage_surface(case):
                                                     "s_cone", "z_cone")],
             pick(g["imp_mask"][:-1]), pick(g["p_ref"][:-1]),
             pick(g["friction"][:-1]))
-    want = np_tree(jax.jit(jax.vmap(lambda *a: jistage.stage_pre(
+    want = np_tree(jit_unoptimised(jax.vmap(lambda *a: jistage.stage_pre(
         jw["model"], jw["contacts"], jw["costs"], jw["limits"], *a)))(*args))
     got = torch.func.vmap(lambda *a: tistage.stage_pre(
         tp["model"], tp["contacts"], tp["costs"], tp["limits"], *a))(

@@ -26,8 +26,8 @@ import torch
 import jax
 import jax.numpy as jnp
 
-from _torch_cases import (jax_trot, jax_walk, rodrigues, trot_iterate,
-                          trot_to_torch)
+from _torch_cases import (jax_trot, jax_walk, jit_unoptimised, rodrigues,
+                          trot_iterate, trot_to_torch)
 
 from robotoc_tpu.costs import base as jcost_base
 from robotoc_tpu.models import contacts as jct
@@ -55,7 +55,7 @@ def _case(jt, seed, scale):
     grid_t = TOS._fleet(sol_t, tp["grid"], tp["q0"][None], tp["v0"][None])[1]
     cost_t = chn.cost_fold_inputs(tp["model"], tp["contacts"], tp["costs"],
                                   grid_t, sol_t)
-    cost_j = jax.jit(lambda s: pch.cost_fold_inputs(
+    cost_j = jit_unoptimised(lambda s: pch.cost_fold_inputs(
         jt["model"], jt["contacts"], jt["costs"], jt["grid"], s))(
         JOS.Solution(**{k: jnp.asarray(v) for k, v in f.items()}))
     return dict(jt=jt, tp=tp, f=f, g=g, ins=ins, cost_t=cost_t,
@@ -146,7 +146,7 @@ def _xla_fn(case):
                    se_xres=-(Cinv @ r))
         return out
 
-    case["xla_fn"] = jax.jit(jax.vmap(one))
+    case["xla_fn"] = jit_unoptimised(jax.vmap(one))
     return case["xla_fn"]
 
 
@@ -175,7 +175,7 @@ def _pallas_fn(case):
     compile."""
     if "pallas_fn" not in case:
         jt = case["jt"]
-        case["pallas_fn"] = jax.jit(pch.make_chain(
+        case["pallas_fn"] = jit_unoptimised(pch.make_chain(
             jt["model"], jt["contacts"], interpret=True, with_cost=True))
     return case["pallas_fn"]
 

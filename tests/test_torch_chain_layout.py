@@ -17,8 +17,19 @@ tree that is not a star; its stages are made from numpy seeds
   * near the SE(3) log's branch cut (the JAX package's own data for its
     surface kernel test, open check C1 of ROADMAP.md): K6's host build and
     chain_plain against the XLA oracle, at the JAX test's 1e-5 and at
-    1e-10 of each output's max-abs (the Pallas route:
-    tests/test_torch_chain_branch_cut.py).
+    1e-10 of each output's max-abs, and against the Pallas kernel in
+    interpret mode at the JAX test's 1e-5.
+
+Near the branch cut: the full iCub's soles sit near pi from the identity;
+with reference rotations near the identity (R_ref = so3_exp(0.2 N(0, 1)))
+the Baumgarte rows' rotation log works near its branch cut, where two
+correct evaluations may differ by a turn. The JAX package holds its Pallas
+kernel against its XLA oracle on exactly this data at 1e-5
+(tests/test_pallas_chain.py, test_chain_surface_matches_jacfwd: S = 5,
+PRNGKey(2)). The same data, made by JAX and handed over as numpy, goes
+through the port's two routes: K6's host build (csrc/chain_stage.cuh,
+IcubSoles), which mirrors the Pallas kernel, and chain_plain, the route
+that mirrors the XLA oracle.
 """
 import ctypes
 import dataclasses
@@ -32,9 +43,10 @@ import torch
 import jax
 import jax.numpy as jnp
 
-from _torch_cases import host_chain, icub_soles_jax
+from _torch_cases import host_chain, icub_soles_jax, jit_unoptimised
 
 from robotoc_tpu.models import contacts as jct
+from robotoc_tpu.ops import pallas_chain as pch
 from robotoc_tpu_torch import kernels, problems
 from robotoc_tpu_torch.models import load_robot
 from robotoc_tpu_torch.models.contacts import SURFACE, make_contacts
@@ -180,7 +192,7 @@ def _xla_oracle():
                     dCdv=dCv, J=J, g=g, dgdq=dgdq, dgdf=dgdf,
                     task=res[4][0], dtask=res[4][1])
 
-    return jax.jit(jax.vmap(one))
+    return jit_unoptimised(jax.vmap(one))
 
 
 def test_chain_plain_matches_xla(icub):
@@ -257,3 +269,20 @@ def test_routes_follow_xla_near_the_branch_cut(host):
                                        atol=1e-5, err_msg=f"{route} {n}")
             err = float(np.abs(x.numpy() - want).max())
             assert err <= 1e-10 * scale, (route, n, err, scale)
+
+
+def test_routes_match_pallas_near_the_branch_cut(host):
+    """K6's host build and chain_plain on the same data against the Pallas
+    kernel in interpret mode, at the JAX test's 1e-5."""
+    m, contacts, ins = _soles_jax()
+    assert pch.chain_supported(m, contacts)
+    pallas = jit_unoptimised(pch.make_chain(m, contacts, interpret=True))(*ins)
+    model, cts = problems.icub_soles(device="cpu")
+    plain = chn.chain_plain(model, cts, *[torch.as_tensor(x) for x in ins])
+    got = host_chain(host, model, cts, ins,
+                     {n: plain[n].shape for n in chn._OUTS})
+    for n in chn._OUTS:
+        want = np.asarray(pallas[n])
+        for route, x in (("host build", got[n]), ("chain_plain", plain[n])):
+            np.testing.assert_allclose(x.numpy(), want, rtol=1e-5,
+                                       atol=1e-5, err_msg=f"{route} {n}")

@@ -16,8 +16,8 @@ from torch.func import vmap
 import jax
 import jax.numpy as jnp
 
-from _torch_cases import (assert_close, fields, jax_init_solution,
-                          jax_problem, np_tree, perturbed_solution,
+from _torch_cases import (assert_close, fields, jax_init_solution, jax_problem,
+                          jit_unoptimised, np_tree, perturbed_solution,
                           to_torch)
 
 from robotoc_tpu.ocp import contact_stage as jstage
@@ -54,16 +54,17 @@ def stages():
     args = _pre_args(sol, fields(jp["grid"]), 1e-3)
     pre_fn = functools.partial(jstage.stage_pre, jp["model"], jp["contacts"],
                                (jp["cost"],), jp["limits"])
-    pre_j = np_tree(jax.jit(jax.vmap(pre_fn))(*[jnp.asarray(a)
+    pre_j = np_tree(jit_unoptimised(jax.vmap(pre_fn))(*[jnp.asarray(a)
                                                  for a in args]))
     pre_t = vmap(functools.partial(
         tstage.stage_pre, tp["model"], tp["contacts"], (tp["cost"],),
         tp["limits"]))(*[torch.as_tensor(np.array(a)) for a in args])
     kin = {k: v for k, v in pre_j.items() if not k.startswith("aux_")}
     dims = (18, 12, 12, 20)
-    ref_pallas = np_tree(pc.make_condense(*dims, interpret=True)(
+    ref_pallas = np_tree(jit_unoptimised(
+        pc.make_condense(*dims, interpret=True))(
         **{k: jnp.asarray(v) for k, v in kin.items()}))
-    ref_jax = np_tree(jax.jit(jax.vmap(functools.partial(
+    ref_jax = np_tree(jit_unoptimised(jax.vmap(functools.partial(
         jstage.condense_jax, 18, 12, 12)))(
         {k: jnp.asarray(v) for k, v in kin.items()}))
     port = cd.condense({k: torch.as_tensor(np.array(v))
@@ -114,7 +115,7 @@ def test_stage_finish_and_expand(stages):
     jp, tp = stages["jp"], stages["tp"]
     pre_j = stages["pre_j"]
     ko_j = {k: jnp.asarray(v) for k, v in stages["jax"].items()}
-    blocks_j = jax.jit(jax.vmap(functools.partial(
+    blocks_j = jit_unoptimised(jax.vmap(functools.partial(
         jstage.stage_finish, 18, 12, 12)))(
         {k: jnp.asarray(v) for k, v in pre_j.items()}, ko_j)
     blocks_t = tstage.stage_finish(
@@ -134,7 +135,7 @@ def test_stage_finish_and_expand(stages):
     f, beta, mu = (rng.standard_normal(12), rng.standard_normal(18),
                    rng.standard_normal(12))
     cm = np.array([1.0, 1.0, 0.0, 1.0])
-    out_j = jax.jit(lambda b, *a: jstage.expand(
+    out_j = jit_unoptimised(lambda b, *a: jstage.expand(
         jp["model"], jp["contacts"], jp["limits"], 1e-3, b, *a))(
         jax.tree.map(lambda x: x[i], blocks_j),
         *[jnp.asarray(x) for x in (dq, dv, du, gn)], 0.025,

@@ -16,7 +16,8 @@ and one Newton update of a small fleet
 on the card matches the same update on the CPU, for the standing problem,
 for the trot (impact slots, switching rows, the chain kernel K6 with the
 cost fold) and for the iCub walk (K6's surface-contact instance, the
-34-row Kc)."""
+34-row Kc). The closed loop's plant replays its substeps as one CUDA graph
+on the card: the replay equals the same ops launched one by one."""
 import dataclasses
 
 import numpy as np
@@ -346,3 +347,24 @@ def test_chain_refuses_a_layout_past_its_workspace(dev):
     with pytest.raises(ValueError, match="do not fit"):
         chn.chain(serial, contacts, *args)
     assert chn.chain.launches == 0
+
+
+def test_plant_graph_replay_matches_its_ops(dev):
+    """The plant's step on the card (its 10 substeps replayed as one
+    captured CUDA graph) equals the same substeps launched op by op, on
+    two consecutive ticks from a state with feet in the ground (1e-12 of
+    max(1, |x|))."""
+    p = problems.anymal_trot_sim(N=4, device=dev)
+    sim = p.simulator
+    q = p.q0.clone()
+    q[2] -= 0.01
+    state = sim.init(q, torch.full((18,), 0.1, dtype=q.dtype, device=dev))
+    u = torch.linspace(-5.0, 5.0, 12, dtype=q.dtype, device=dev)
+    for _ in range(2):
+        got = sim.step(state, u, n_substeps=10)
+        want = sim._substeps(state, u, 10)
+        for g, w in zip(got, want):
+            assert float((g - w).abs().max()) <= 1e-12 * max(
+                1.0, float(w.abs().max()))
+        state = got
+    assert len(sim._graphs) == 1

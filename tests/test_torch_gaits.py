@@ -245,7 +245,7 @@ def test_step_configuration_ref_matches_jax():
                                          for k, v in f.items()})
     tref = convert.step_configuration_ref(f, device="cpu")
     ts = np.linspace(0.0, 1.6, 81)
-    want = np.asarray(jax.jit(jax.vmap(jref))(ts))
+    want = np.asarray(jit_unoptimised(jax.vmap(jref))(ts))
     assert_close(tref(torch.as_tensor(ts)).numpy(), want, 1e-12, "q_ref(t)")
     # a 0-dim time (one stage under vmap) gives one configuration
     assert_close(tref(torch.tensor(0.6, dtype=torch.float64)).numpy(),
@@ -303,7 +303,7 @@ def _cost_terms(anymal):
                                          for k, x in f.items()})
     tref = convert.step_configuration_ref(f, device="cpu")
 
-    @jax.jit
+    @jit_unoptimised
     def jax_quads(w, *a):
         jc = _config_costs(jcc, jm, jref, w)
         return jax.vmap(lambda *x: _config_cost_quads(jc, jm, *x))(*a)

@@ -1,8 +1,9 @@
 """The trot slice's impact modules against the JAX package, f64, on the
-mid-gait ANYmal trot at N = 10: the impact functions of models/contacts,
-the impact quadratization of the cost stack, the impact stage (stage_pre
-on every reserved slot, expand) and the switching constraint. Inputs are
-the JAX problem's objects converted to the port and numpy-seeded states."""
+mid-gait ANYmal trot at N = 10: the impact functions of models/contacts
+and the impact stage (stage_pre on every reserved slot, expand). Inputs
+are the JAX problem's objects converted to the port and numpy-seeded
+states. The switching constraint and the impact quadratization of the
+cost stack are in tests/test_torch_trot.py."""
 import numpy as np
 import pytest
 import torch
@@ -10,15 +11,11 @@ import torch
 import jax
 import jax.numpy as jnp
 
-from _torch_cases import (anymal_states, close_tree, jax_trot, np_tree,
-                          trot_iterate, trot_to_torch)
+from _torch_cases import (anymal_states, close_tree, jax_trot, jit_unoptimised,
+                          np_tree, trot_iterate, trot_to_torch)
 
-from robotoc_tpu.costs import base as jcost_base
-from robotoc_tpu.dynamics import switching_constraint as jswc
 from robotoc_tpu.models import contacts as jct
 from robotoc_tpu.ocp import impact_stage as jistage
-from robotoc_tpu_torch.costs import base as tcost_base
-from robotoc_tpu_torch.dynamics import switching_constraint as tswc
 from robotoc_tpu_torch.models import contacts as tct
 from robotoc_tpu_torch.ocp import impact_stage as tistage
 
@@ -42,7 +39,8 @@ def test_impact_functions(case):
                        ("contact_position_residual", (q, p_ref)),
                        ("contact_position_derivative", (q, p_ref))):
         jfn, tfn = getattr(jct, name), getattr(tct, name)
-        want = np_tree(jax.jit(jax.vmap(lambda *a: jfn(jm, jc, *a)))(*args))
+        want = np_tree(jit_unoptimised(jax.vmap(
+            lambda *a: jfn(jm, jc, *a)))(*args))
         got = torch.func.vmap(lambda *a: tfn(tm, tc, *a))(
             *[torch.as_tensor(a) for a in args])
         close_tree(got if isinstance(want, tuple) else [got],
@@ -50,7 +48,7 @@ def test_impact_functions(case):
                     name=name)
     args = (q, dv, v, lam, fric)
     for with_task in (False, True):
-        want = np_tree(jax.jit(jax.vmap(
+        want = np_tree(jit_unoptimised(jax.vmap(
             lambda *a: jct.fused_impact_derivatives(
                 jm, jc, *a, with_task=with_task)))(*args))
         got = torch.func.vmap(lambda *a: tct.fused_impact_derivatives(
@@ -81,7 +79,7 @@ def test_impact_stage(case):
     args = _slots(jt, f, idx)
     jfn = lambda *a: jistage.stage_pre(                    # noqa: E731
         jt["model"], jt["contacts"], jt["costs"], jt["limits"], *a)
-    want = np_tree(jax.jit(jax.vmap(jfn))(*args))
+    want = np_tree(jit_unoptimised(jax.vmap(jfn))(*args))
     got = torch.func.vmap(lambda *a: tistage.stage_pre(
         tp["model"], tp["contacts"], tp["costs"], tp["limits"], *a))(
         *[torch.as_tensor(a) for a in args])
@@ -98,7 +96,7 @@ def test_impact_stage(case):
     dqv = rng.standard_normal((2, n, 18))
     gmm_new = rng.standard_normal((n, 18))
     jblocks = jistage.StageBlocks(*[jnp.asarray(x.numpy()) for x in blocks])
-    want = np_tree(jax.jit(jax.vmap(lambda b, *a: jistage.expand(
+    want = np_tree(jit_unoptimised(jax.vmap(lambda b, *a: jistage.expand(
         jt["model"], jt["contacts"], 1e-3, b, *a)))(
         jblocks, dqv[0], dqv[1], gmm_new, args[7], args[8], args[9],
         args[18], args[19], args[20], args[22], args[3]))
@@ -108,45 +106,3 @@ def test_impact_stage(case):
             dqv[0], dqv[1], gmm_new, args[7], args[8], args[9], args[18],
             args[19], args[20])])
     close_tree(got, want, TOL, name="expand")
-
-
-def test_switching_constraint(case):
-    jt, tp = case
-    q, v, a, _ = anymal_states(tp["model"], 2, 6)
-    g = {k: np.array(x) for k, x in vars(jt["grid"]).items()}
-
-    def T(x):
-        return torch.as_tensor(np.asarray(x), dtype=torch.float64)
-
-    mask = np.array([0.0, 1.0, 1.0, 0.0])
-    for i in range(2):
-        args = (q[i], v[i], a[i], 0.025, 0.02, g["p_ref"][9], g["R_ref"][9],
-                mask)
-        want = np_tree(jax.jit(lambda *x: jswc.residual_and_jacs(
-            jt["model"], jt["contacts"], *x))(*args))
-        got = tswc.residual_and_jacs(tp["model"], tp["contacts"],
-                                     *[T(x) for x in args])
-        close_tree(got, want, TOL, name="residual_and_jacs")
-        rng = np.random.default_rng(7 + i)
-        G, c0 = rng.standard_normal((18, 48)), rng.standard_normal(18)
-        want = np_tree(jax.jit(lambda *x: jswc.condense(*x, 18, 12))(
-            *want, G, c0))
-        got = tswc.condense(*got, T(G), T(c0), 18, 12)
-        close_tree(got, want, TOL, name="condense")
-
-
-def test_quadratize_impact_container(case):
-    """costs/base.quadratize_impact over the stack, with and without the
-    task kinematics handed in."""
-    jt, tp = case
-    q, v, dv, _ = anymal_states(tp["model"], 1, 9)
-    q = q[0]
-
-    def T(x):
-        return torch.as_tensor(np.asarray(x), dtype=torch.float64)
-
-    want = np_tree(jax.jit(lambda *a: jcost_base.quadratize_impact(
-        jt["costs"], jt["model"], *a))(q, v[0], dv[0], 0.6))
-    got = tcost_base.quadratize_impact(tp["costs"], tp["model"], T(q),
-                                       T(v[0]), T(dv[0]), T(0.6))
-    close_tree(got, want, TOL, name="quadratize_impact")

@@ -35,7 +35,7 @@ import torch
 
 import jax.numpy as jnp
 
-from _torch_cases import Q_STAND, fields
+from _torch_cases import Q_STAND, fields, jax_mpc_solver
 
 from robotoc_tpu.models import load_robot as jload
 from robotoc_tpu.mpc import MPCJump as JMPCJump
@@ -103,6 +103,7 @@ def jump(rungs):
     (iterates, KKT, steps; the port's with their rung indices)."""
     q0, v0 = jnp.asarray(Q_STAND), jnp.zeros(18)
     jm = _jax_mpc()
+    jax_mpc_solver(jm, (jm.config_cost,))      # its warm start jitted
     jm.init(0.0, q0, v0, num_iters=0)          # plan, grid, warm start
     ref = dict(grid0=fields(jm.grid), warm=_np_fields(jm.sol),
                cost=fields(jm.config_cost), p0=jm._p_stance, p1=jm._p_land)

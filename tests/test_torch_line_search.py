@@ -20,8 +20,8 @@ import torch
 import jax
 import jax.numpy as jnp
 
-from _torch_cases import (fields, jax_problem, jax_trot, np_tree,
-                          perturbed_solution, to_torch, trot_iterate,
+from _torch_cases import (fields, jax_problem, jax_trot, jit_unoptimised,
+                          np_tree, perturbed_solution, to_torch, trot_iterate,
                           trot_to_torch)
 
 from robotoc_tpu.line_search import line_search as jls
@@ -96,7 +96,7 @@ def _jax_eval(jp, costs, sol, q0s, v0s):
         return jls.eval_ocp(jp["model"], jp["contacts"], jp["limits"], 1e-3,
                             costs, s, jp["grid"], q, v)
     js = JOS.Solution(**{k: jnp.asarray(v) for k, v in sol.items()})
-    return np_tree(jax.jit(jax.vmap(one))(js, jnp.asarray(q0s),
+    return np_tree(jit_unoptimised(jax.vmap(one))(js, jnp.asarray(q0s),
                                           jnp.asarray(v0s)))
 
 

@@ -21,8 +21,8 @@ import torch
 import jax
 import jax.numpy as jnp
 
-from _torch_cases import close_tree, fields, jax_iiwa, np_tree, \
-    perturbed_arm_iterate
+from _torch_cases import (close_tree, fields, jax_iiwa, jit_unoptimised,
+                          np_tree, perturbed_arm_iterate)
 
 from robotoc_tpu.ops.linalg import spd_inverse
 from robotoc_tpu.parnmpc import solver as JP
@@ -58,12 +58,13 @@ def _jit(kind):
     jp = _jax()
     args = (jp["model"], (jp["cost"],), jp["limits"], T / N, BARRIER, 0.0)
     if kind == "terms":
-        return jax.jit(lambda s, q, v: JP._stage_terms(*args, s, q, v))
+        return jit_unoptimised(lambda s, q, v: JP._stage_terms(*args, s, q, v))
     if kind == "inverse":
-        return jax.jit(jax.vmap(_jax_kkt_inverse))
+        return jit_unoptimised(jax.vmap(_jax_kkt_inverse))
     if kind == "eval":
-        return jax.jit(lambda s, q, v: JP._eval_parnmpc(*args, s, q, v))
-    return jax.jit(lambda s, q, v: JP._update(
+        return jit_unoptimised(
+            lambda s, q, v: JP._eval_parnmpc(*args, s, q, v))
+    return jit_unoptimised(lambda s, q, v: JP._update(
         *args[:5], FTB, 0.0, False, 0.75, 0.05, s, q, v)[:3])
 
 

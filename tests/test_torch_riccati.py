@@ -12,6 +12,8 @@ import torch
 import jax
 import jax.numpy as jnp
 
+from _torch_cases import jit_unoptimised
+
 from robotoc_tpu.core.structs import LQRData as JLQRData
 from robotoc_tpu.riccati import lqr as jlqr
 from robotoc_tpu.riccati import pallas_scan
@@ -54,9 +56,9 @@ def case(request):
     fields = _random_data(nf + 1, nf)
     dx0 = 0.1 * np.random.default_rng(7).standard_normal((B, NX))
     data_j = _jax(fields)
-    pal = jax.jit(jax.vmap(pallas_scan.make_solve(interpret=True)))(
+    pal = jit_unoptimised(jax.vmap(pallas_scan.make_solve(interpret=True)))(
         data_j, jnp.asarray(dx0))
-    ser = jax.jit(jax.vmap(jlqr.solve))(data_j, jnp.asarray(dx0))
+    ser = jit_unoptimised(jax.vmap(jlqr.solve))(data_j, jnp.asarray(dx0))
     data_t = convert.lqr_data(fields, device="cpu")
     port = backward_sweep.solve(data_t, torch.as_tensor(dx0))
     port_lqr = tlqr.solve(data_t, torch.as_tensor(dx0))

@@ -8,7 +8,7 @@ import torch
 import jax
 import jax.numpy as jnp
 
-from _torch_cases import FEET, Q_STAND, fields
+from _torch_cases import FEET, Q_STAND, fields, jit_unoptimised
 
 from robotoc_tpu.models import load_robot as jload
 from robotoc_tpu.models import robot as jrm
@@ -73,13 +73,14 @@ _JITTED = {}
 
 
 def _jit(fn, *consts):
-    """fn(*consts, *args) under jax.jit: one compile in place of the eager
-    dispatch of every op (and of every op of a jacfwd) of the reference;
+    """fn(*consts, *args) jitted (without backend optimisation): one
+    compile in place of the eager dispatch of every op (and of every op of
+    a jacfwd) of the reference;
     made once per function and constants (the module's models), so that
     a parametrized test's later cases reuse the compile."""
     key = (fn,) + tuple(id(c) for c in consts)
     if key not in _JITTED:
-        _JITTED[key] = jax.jit(lambda *args: fn(*consts, *args))
+        _JITTED[key] = jit_unoptimised(lambda *args: fn(*consts, *args))
     return _JITTED[key]
 
 
@@ -228,3 +229,51 @@ def test_config_cost(models):
            _jit(jcc.quadratize_stage, jm, jc_)(*_J(q, v, a, u), 0.025))
     _close(tcc.quadratize_terminal(tm, tc_, *_T(q, v)),
            _jit(jcc.quadratize_terminal, jm, jc_)(*_J(q, v)))
+
+
+@pytest.fixture(scope="module")
+def arms():
+    """The iiwa14 (fixed base) in both packages."""
+    return jload("iiwa14"), tload("iiwa14", dtype=torch.float64,
+                                  device="cpu")
+
+
+@pytest.mark.parametrize("robot", ["anymal", "iiwa14"])
+def test_plant_model_functions(models, arms, robot):
+    """normalize (off the unit quaternion sphere), joint_velocities,
+    frame_velocity (the ANYmal's feet; the iiwa14's world frame, which
+    hangs on the root: zero, and its last frame) and nonlinear_effects, on
+    three seeded states: 1e-12."""
+    jm, tm = (models[0], models[1]) if robot == "anymal" else arms
+    rng = np.random.default_rng(12)
+    if robot == "anymal":
+        q = np.stack([_inputs(s)[0] for s in (12, 13, 14)])
+        q[:, 3:7] *= rng.uniform(0.8, 1.2, (3, 1))
+    else:
+        q = rng.standard_normal((3, jm.nq))
+    v = rng.standard_normal((3, jm.nv))
+    assert any(p < 0 for p in tm.frame_parents) == (robot == "iiwa14")
+    _close(trm.normalize(tm, *_T(q)),
+           _jit(jax.vmap(lambda x: jrm.normalize(jm, x)))(*_J(q)), 1e-12)
+    if robot == "anymal":
+        norms = torch.linalg.norm(trm.normalize(tm, *_T(q))[:, 3:7], dim=-1)
+        np.testing.assert_allclose(norms.numpy(), 1.0, rtol=0, atol=1e-15)
+    q = np.asarray(jax.vmap(lambda x: jrm.normalize(jm, x))(jnp.asarray(q)))
+    fids = (tuple(tm.frame_id(f) for f in FEET) if robot == "anymal"
+            else (0, len(tm.frame_parents) - 1))
+
+    def jfns(q_, v_):
+        return (jrm.joint_velocities(jm, q_, v_),
+                [jrm.frame_velocity(jm, f, q_, v_) for f in fids],
+                jrm.nonlinear_effects(jm, q_, v_))
+
+    want = _jit(jax.vmap(jfns))(*_J(q, v))
+    qt, vt = _T(q, v)
+    got = (trm.joint_velocities(tm, qt, vt),
+           [trm.frame_velocity(tm, f, qt, vt) for f in fids],
+           trm.nonlinear_effects(tm, qt, vt))
+    _close(got, want, 1e-12)
+    for i, f in enumerate(fids):
+        if tm.frame_parents[f] < 0:
+            assert float(got[1][i].abs().max()) == 0.0
+    assert (robot == "iiwa14") == (tm.frame_parents[fids[0]] < 0)

@@ -27,10 +27,10 @@ import numpy as np
 import pytest
 import torch
 
-import jax
 import jax.numpy as jnp
 
-from _torch_cases import fields, jax_problem, np_tree, to_torch
+from _torch_cases import (fields, jax_problem, jit_unoptimised, np_tree,
+                          to_torch)
 from test_barrier_schedule import _standing_problem
 
 from robotoc_tpu.line_search import line_search as jls
@@ -74,10 +74,10 @@ def _jax_fns(jp, search):
     no impact slots, the serial Riccati), jitted once per module."""
     args = (jp["model"], jp["contacts"], jp["limits"], 1e-3)
     if "build" not in _JIT:
-        _JIT["build"] = jax.jit(lambda s, q, v: JOS._build(
+        _JIT["build"] = jit_unoptimised(lambda s, q, v: JOS._build(
             *args, 0, (jp["cost"],), s, jp["grid"], q, v))
     if search not in _JIT:
-        _JIT[search] = jax.jit(lambda s, q, v, built, filt, it:
+        _JIT[search] = jit_unoptimised(lambda s, q, v, built, filt, it:
                                JOS._direction_and_step(
                                    *args, 0.995, 0, (jp["cost"],), s,
                                    jp["grid"], q, v, built, riccati=lqr,

@@ -31,8 +31,8 @@ import torch
 import jax
 import jax.numpy as jnp
 
-from _torch_cases import (IIWA_Q0, close_tree, fields, jax_iiwa, np_tree,
-                          perturbed_arm_iterate)
+from _torch_cases import (close_tree, fields, IIWA_Q0, jax_iiwa,
+                          jit_unoptimised, np_tree, perturbed_arm_iterate)
 
 from robotoc_tpu.constraints import joint_limits as jjl
 from robotoc_tpu.costs import config_cost as jcc
@@ -84,7 +84,7 @@ def _dyn_jax(name):
         "integrate_difference": lambda q, v, a: (
             jrm.integrate(m, q, v), jrm.difference(m, q, a)),
     }
-    return jax.jit(jax.vmap(fns[name]))
+    return jit_unoptimised(jax.vmap(fns[name]))
 
 
 def _dyn_port(name, q, v, a):
@@ -154,13 +154,13 @@ def _jit(kind):
     two functions so that the build's compile serves all three tests."""
     jp = _jax()
     if kind == "build":
-        return jax.jit(lambda s, q, v: JU._build_kkt(
+        return jit_unoptimised(lambda s, q, v: JU._build_kkt(
             jp["model"], (jp["cost"],), jp["limits"], T / N, BARRIER, 0.0,
             s, q, v))
     if kind == "step":
-        return jax.jit(lambda built, s: JU._direction_step(
+        return jit_unoptimised(lambda built, s: JU._direction_step(
             jp["model"], jp["limits"], BARRIER, FTB, built, s)[:3])
-    return jax.jit(lambda built, s, q, v, filt, it: JU._direction_step(
+    return jit_unoptimised(lambda built, s, q, v, filt, it: JU._direction_step(
         jp["model"], jp["limits"], BARRIER, FTB, built, s,
         ((jp["cost"],), T / N, 0.0, q, v, filt, it, 0.75, 0.05)))
 

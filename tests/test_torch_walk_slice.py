@@ -24,10 +24,8 @@ import numpy as np
 import pytest
 import torch
 
-import jax
-
-from _torch_cases import (fields, jax_fleet, jax_walk, trot_iterate,
-                          trot_to_torch)
+from _torch_cases import (fields, jax_fleet, jax_walk, jit_unoptimised,
+                          trot_iterate, trot_to_torch)
 
 from robotoc_tpu.models import robot as jrm
 from robotoc_tpu.solver import ocp_solver as JOS
@@ -94,7 +92,7 @@ def test_walk_update_matches_jax_f64(case):
             use_pallas=False, use_chain=False)
         return new, kkt, a_p
 
-    ref_sol, ref_kkt, ref_ap = jax_fleet(jax.jit(upd), sol, q0s, v0s)
+    ref_sol, ref_kkt, ref_ap = jax_fleet(jit_unoptimised(upd), sol, q0s, v0s)
     new, kkt, a_p, policy = _port(tp, sol, q0s, v0s, use_chain=True)
     assert policy.Mx is not None          # the switching branch ran
     _close_scaled(kkt.numpy(), ref_kkt, 1e-8, "kkt")
